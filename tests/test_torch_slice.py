@@ -1,0 +1,148 @@
+"""The stereo tracking lane of the PyTorch port end to end, held against the
+JAX reference System on the same rendered 320x240 sequence, synchronous,
+mapping off; and the port's independence from JAX.
+
+The reference System gets the small packaged vocabulary: with mapping off no
+keyframe ever enters its keyframe database, so its relocalization always
+falls back to the reference-keyframe search, which is what the port runs
+without place recognition. Tracking is therefore the same algorithm on both
+sides.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from orb_slam2_2021_tpu.config import synthetic_config
+from orb_slam2_2021_tpu.io.synthetic import SyntheticStereoWorld, forward_trajectory
+from orb_slam2_2021_tpu.io.trajectory import ate_rmse
+from orb_slam2_2021_tpu_torch.pipeline.system import System as TSystem
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_FRAMES = 12
+
+
+def _gt_mats(gt):
+    out = []
+    for R, t in gt:
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        out.append(T)
+    return out
+
+
+def test_slice_matches_reference_system():
+    from orb_slam2_2021_tpu.pipeline.system import System as JSystem
+    from orb_slam2_2021_tpu.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
+    from orb_slam2_2021_tpu.place.vocab import BinaryVocabulary
+
+    cfg = synthetic_config(width=320, height=240)
+    world = SyntheticStereoWorld(cfg, seed=3)
+    gt = forward_trajectory(N_FRAMES, step=0.12)
+    frames = [world.render(R, t) for R, t in gt]
+
+    ref = JSystem(cfg, enable_mapping=False,
+                  place_rec=PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL)))
+    port = TSystem(cfg, enable_mapping=False, device="cpu")
+    for i, (left, right) in enumerate(frames):
+        pr = ref.track_stereo(left, right, timestamp=0.1 * i)
+        pt = port.track_stereo(left, right, timestamp=0.1 * i)
+        assert (pr is None) == (pt is None), f"frame {i}: tracked flags differ"
+        if pr is not None:
+            dt = np.abs(pt[1] - pr[1]).max()
+            dR = np.abs(pt[0] - pr[0]).max()
+            assert dt < 1e-3, f"frame {i}: t differs by {dt:.2e} m (tolerance 1 mm)"
+            assert dR < 1e-3, f"frame {i}: R differs by {dR:.2e} (tolerance 1e-3)"
+        assert port.map.n_kf == ref.map.n_kf, f"frame {i}: keyframe counts differ"
+    ref.shutdown()
+    port.shutdown()
+
+    assert [m["state"] for m in port.metrics] == [m["state"] for m in ref.metrics]
+    est_t, est_r = port.trajectory_kitti(), ref.trajectory_kitti()
+    assert len(est_t) == len(est_r) == N_FRAMES
+    diff = max(np.abs(A[:3, 3] - B[:3, 3]).max() for A, B in zip(est_t, est_r))
+    assert diff < 1e-3, f"exported trajectories differ by {diff:.2e} m (tolerance 1 mm)"
+    ate_t, ate_r = ate_rmse(est_t, _gt_mats(gt)), ate_rmse(est_r, _gt_mats(gt))
+    assert np.isfinite(ate_t) and abs(ate_t - ate_r) < 1e-3, \
+        f"ATE {ate_t:.4f} m vs the reference's {ate_r:.4f} m (tolerance 1 mm)"
+
+
+def test_reset_on_early_loss_matches_reference():
+    """Initialize, then show a frame of an unrelated world: both systems lose
+    track with a small map, reset, and re-initialize on the next frame."""
+    from orb_slam2_2021_tpu.pipeline.system import System as JSystem
+    from orb_slam2_2021_tpu.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
+    from orb_slam2_2021_tpu.place.vocab import BinaryVocabulary
+
+    cfg = synthetic_config(width=320, height=240)
+    gt = forward_trajectory(3, step=0.12)
+    worlds = [SyntheticStereoWorld(cfg, seed=3), SyntheticStereoWorld(cfg, seed=11)]
+    frames = [worlds[0].render(*gt[0]), worlds[0].render(*gt[1]),
+              worlds[1].render(*gt[2]), worlds[1].render(*gt[2])]
+    ref = JSystem(cfg, enable_mapping=False,
+                  place_rec=PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL)))
+    port = TSystem(cfg, enable_mapping=False, device="cpu")
+    states = []
+    for i, (left, right) in enumerate(frames):
+        pr = ref.track_stereo(left, right, timestamp=0.1 * i)
+        pt = port.track_stereo(left, right, timestamp=0.1 * i)
+        assert (pr is None) == (pt is None), f"frame {i}: tracked flags differ"
+        assert port.map.n_kf == ref.map.n_kf, f"frame {i}: keyframe counts differ"
+        states.append((port.tracker.state.name, ref.tracker.state.name))
+    assert states[2] == ("LOST", "LOST") and port._reset_requested is False
+    assert states[3] == ("OK", "OK") and port.map.n_kf == 1, "re-initialized after the reset"
+    assert len(port.trajectory_kitti()) == len(ref.trajectory_kitti()) == 1
+
+
+def test_unported_modes_raise():
+    cfg = synthetic_config(width=320, height=240)
+    for kwargs in ({}, {"enable_mapping": False, "async_mode": True},
+                   {"enable_mapping": False, "sensor": "mono"},
+                   {"enable_mapping": False, "place_rec": object()}):
+        with pytest.raises(NotImplementedError):
+            TSystem(cfg, **kwargs)
+
+
+def test_port_runs_without_jax():
+    """Two frames through the port's System in a process where importing
+    jax fails; the package must not pull in any JAX-using reference module."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from orb_slam2_2021_tpu_torch.pipeline.system import System
+        from orb_slam2_2021_tpu.config import synthetic_config
+        from orb_slam2_2021_tpu.io.synthetic import SyntheticStereoWorld, forward_trajectory
+        cfg = synthetic_config(width=320, height=240)
+        world = SyntheticStereoWorld(cfg, seed=3)
+        s = System(cfg, enable_mapping=False, device="cpu")
+        poses = [s.track_stereo(*world.render(R, t), timestamp=0.1 * i)
+                 for i, (R, t) in enumerate(forward_trajectory(2, step=0.12))]
+        assert all(p is not None for p in poses), poses
+        bad = sorted(m for m in sys.modules if m.startswith("orb_slam2_2021_tpu.")
+                     and m.split(".")[1] not in ("config", "mapping", "native", "io"))
+        assert not bad, bad
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-3000:]
+
+
+def test_package_sources_do_not_import_jax():
+    pkg = os.path.join(REPO, "orb_slam2_2021_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(root, f)).read()
+                assert "import jax" not in src and "from jax" not in src, f
