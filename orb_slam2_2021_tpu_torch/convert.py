@@ -1,10 +1,11 @@
 """Carry the reference's per-frame state into the port.
 
-The slice has no learned weights: its state is what a frame or a tracking
-step carries. These helpers turn the JAX package's arrays (anything
-`np.asarray` accepts, so this module imports no JAX) into the port's tensors
-on a given device. Descriptors travel as int32 tensors holding the same 32
-bits as the reference's uint32 words.
+The engine has no learned weights: its state is what a frame, a tracking
+step, a keyframe view or a BA problem carries. These helpers turn the JAX
+package's arrays (anything `np.asarray` accepts, so this module imports no
+JAX) into the port's tensors on a given device. Descriptors travel as int32
+tensors holding the same 32 bits as the reference's uint32 words. `to_host`
+brings several device results back in one copy.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import torch
 from .frontend.features import Keypoints
 from .frontend.frame import Frame
 from .geometry.camera import PinholeCamera
+from .optim.assemble import upload_problem
+from .optim.ba import BAProblem
+from .pipeline.mapping_steps import KFView
 
 
 def tensor(a, device, dtype=None) -> torch.Tensor:
@@ -66,6 +70,51 @@ def frame_from_reference(frame, device) -> Frame:
 def camera_from_config(cfg) -> PinholeCamera:
     """A SlamConfig's intrinsics as the port's camera (float32-rounded)."""
     return PinholeCamera.create(cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.bf, cfg.width, cfg.height)
+
+
+def kfview_from_reference(view, device) -> KFView:
+    """The reference's KFView (mapping_steps.py), single or stacked
+    [T, ...], -> the port's KFView."""
+    return KFView(
+        xy=tensor(view.xy, device, torch.float32),
+        ur=tensor(view.ur, device, torch.float32),
+        depth=tensor(view.depth, device, torch.float32),
+        octave=tensor(view.octave, device, torch.int32),
+        desc=desc_from_numpy(view.desc, device),
+        valid=tensor(view.valid, device, torch.bool),
+        R=tensor(view.R, device, torch.float32),
+        t=tensor(view.t, device, torch.float32),
+    )
+
+
+def ba_problem_from_reference(prob, device) -> BAProblem:
+    """The reference's BAProblem (optim/ba.py) -> the port's, index fields
+    as int64."""
+    return upload_problem(BAProblem(*(_host(v) for v in prob)), device)
+
+
+def to_host(*tensors):
+    """Several device tensors -> numpy arrays in ONE device -> host copy
+    (one sync): each is flattened to 32-bit words, concatenated, pulled,
+    and split back into its own dtype and shape."""
+    words = []
+    for x in tensors:
+        if x.dtype in (torch.float32, torch.int32):
+            words.append(x.reshape(-1).view(torch.int32))
+        else:  # bool, int16, int64 indices below 2^31
+            words.append(x.reshape(-1).to(torch.int32))
+    flat = torch.cat(words).cpu().numpy()
+    out, i = [], 0
+    for x in tensors:
+        n = x.numel()
+        w = flat[i:i + n]
+        i += n
+        if x.dtype == torch.float32:
+            w = w.view(np.float32)
+        elif x.dtype == torch.bool:
+            w = w != 0
+        out.append(w.reshape(tuple(x.shape)))
+    return out
 
 
 def track_inputs_from_reference(last_geom, last_slot, pose_pack,

@@ -1,11 +1,12 @@
 """System facade for the stereo tracking lane (counterpart of
 orb_slam2_2021_tpu/pipeline/system.py).
 
-Synchronous stereo tracking with mapping off: per frame, one upload of the
-uint8 pair, the frame build on the device, then tracking against the shared
-host MapStore. What is not ported yet raises NotImplementedError (see
-ROADMAP.md): local mapping and loop closing, place recognition, async mode,
-monocular and RGB-D input, localization-only mode.
+Synchronous stereo SLAM: per frame, one upload of the uint8 pair, the frame
+build on the device, tracking against the shared host MapStore, then (with
+mapping on) local mapping of any new keyframe and the occupancy grid,
+inline. What is not ported yet raises NotImplementedError (see ROADMAP.md):
+loop closing, place recognition, async mode, monocular and RGB-D input,
+localization-only mode.
 """
 
 from __future__ import annotations
@@ -20,16 +21,19 @@ from orb_slam2_2021_tpu.config import SlamConfig
 from orb_slam2_2021_tpu.mapping.map_store import MapStore
 
 from ..frontend.frame import build_stereo_frame_from_u8
+from ..gridmap.grid import GridMapper
+from .local_mapping import LocalMapping
 from .tracking import Tracking
 
 
 class System:
     def __init__(self, cfg: SlamConfig, enable_mapping: bool = True,
-                 place_rec=None, sensor: str = "stereo", async_mode: bool = False,
-                 device="cpu"):
-        if enable_mapping:
+                 enable_loop_closing: bool = True, place_rec=None,
+                 sensor: str = "stereo", async_mode: bool = False, device="cpu"):
+        if enable_mapping and enable_loop_closing:
             raise NotImplementedError(
-                "local mapping is not ported yet: use enable_mapping=False (ROADMAP.md queue 1, step 8)")
+                "loop closing is not ported yet: use enable_loop_closing=False "
+                "(ROADMAP.md queue 1, step 9)")
         if async_mode:
             raise NotImplementedError("async mode is not ported yet (ROADMAP.md queue 1, step 11)")
         if sensor != "stereo":
@@ -39,7 +43,9 @@ class System:
         self.cfg = cfg
         self.device = torch.device(device)
         self.map = MapStore(cfg)
-        self.tracker = Tracking(cfg, self.map, self.device)
+        self.local_mapper = LocalMapping(cfg, self.map, self.device) if enable_mapping else None
+        self.grid_mapper = GridMapper(cfg, self.map, self.device) if enable_mapping else None
+        self.tracker = Tracking(cfg, self.map, self.device, local_mapper=self.local_mapper)
         self.tracker.request_system_reset = self.reset
         self.frame_times: List[float] = []
         self.metrics: List[dict] = []  # per-frame records (io/metrics.py schema)
@@ -53,10 +59,22 @@ class System:
     def _maybe_reset(self):
         if not self._reset_requested:
             return
+        if self.local_mapper is not None:
+            self.local_mapper.request_reset()
         with self.map.lock:
             self.map.clear()
             self.tracker.reset()
+            if self.grid_mapper is not None:
+                self.grid_mapper.process_new(loop_closed=True)  # clears the grid
         self._reset_requested = False
+
+    def _post_track(self):
+        """Local mapping of the keyframes queued by this frame, then the
+        occupancy grid, inline."""
+        if self.local_mapper is not None:
+            self.local_mapper.process_pending()
+        if self.grid_mapper is not None:
+            self.grid_mapper.process_new()
 
     def _pack_stereo_u8(self, image_left, image_right,
                         normalized: Optional[bool] = None) -> np.ndarray:
@@ -84,12 +102,14 @@ class System:
         with self.map.lock:
             pose = self.tracker.track_stereo_frame(frame, self._frame_id, timestamp)
         t2 = time.perf_counter()
-        self.frame_times.append(t2 - t0)
-        self._collect_metrics(timestamp, t0, t1, t2)
+        self._post_track()
+        t3 = time.perf_counter()
+        self.frame_times.append(t3 - t0)
+        self._collect_metrics(timestamp, t0, t1, t2, t3)
         self._frame_id += 1
         return pose
 
-    def _collect_metrics(self, timestamp, t0, t_extract, t_end):
+    def _collect_metrics(self, timestamp, t0, t_extract, t_track, t_end):
         """The tracker's per-frame record plus host-clock stage times (ms).
         The frame build is enqueued asynchronously, so on a GPU ms_extract is
         its launch time and ms_track includes the wait for it."""
@@ -99,8 +119,8 @@ class System:
         rec = dict(rec)
         rec["timestamp"] = float(timestamp)
         rec["ms_extract"] = 1e3 * (t_extract - t0)
-        rec["ms_track"] = 1e3 * (t_end - t_extract)
-        rec["ms_mapping"] = 0.0
+        rec["ms_track"] = 1e3 * (t_track - t_extract)
+        rec["ms_mapping"] = 1e3 * (t_end - t_track)
         rec["ms_total"] = 1e3 * (t_end - t0)
         self.metrics.append(rec)
 
@@ -122,6 +142,17 @@ class System:
             "fps": float(1.0 / np.median(ts)),
         }
 
+    def occupancy_grid(self):
+        """The live occupancy grid, or None with mapping off."""
+        if self.grid_mapper is None:
+            return None
+        return self.grid_mapper.occupancy_grid()
+
+    def point_cloud(self):
+        if self.grid_mapper is None:
+            return None
+        return self.grid_mapper.point_cloud()
+
     def activate_localization_mode(self):
         raise NotImplementedError("localization mode is not ported yet (ROADMAP.md queue 1)")
 
@@ -131,7 +162,10 @@ class System:
         return write_ndjson(path, self.metrics)
 
     def shutdown(self):
-        """Nothing runs in the background in synchronous mode; wait for the
-        device so every frame's work has finished."""
+        """Drain the mapping queue and the grid (nothing runs in the
+        background in synchronous mode), then wait for the device."""
+        if self.local_mapper is not None:
+            self.local_mapper.finish()
+        self._post_track()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -7,10 +7,15 @@ keyframe decision and creation, and per-frame relative-pose records for
 trajectory export. Device work runs in `track_steps`; this class owns the
 numpy-side feature -> map-point bindings and the shared host MapStore.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): local
-mapping, place recognition (so relocalization is the reference-keyframe
-search, exactly the reference's path when its keyframe database is empty),
-localization-only mode, monocular and RGB-D input.
+With a LocalMapping attached, every new keyframe (the stereo initialization
+and each later one) is handed to it together with the live frame, whose
+device tensors it copies; synchronous mapping is always idle, so the
+keyframe decision keeps its rule.
+
+Not ported yet (each raises NotImplementedError; see ROADMAP.md): place
+recognition (so relocalization is the reference-keyframe search, exactly the
+reference's path when its keyframe database is empty), localization-only
+mode, monocular and RGB-D input.
 """
 
 from __future__ import annotations
@@ -76,12 +81,11 @@ class FrameRecord:
 class Tracking:
     def __init__(self, cfg: SlamConfig, map_store: MapStore, device,
                  local_mapper=None, place_rec=None):
-        if local_mapper is not None:
-            raise NotImplementedError("local mapping is not ported yet (ROADMAP.md queue 1, step 8)")
         if place_rec is not None:
             raise NotImplementedError("place recognition is not ported yet (ROADMAP.md queue 1, step 6)")
         self.cfg = cfg
         self.map = map_store
+        self.local_mapper = local_mapper  # None = mapping off
         self.device = torch.device(device)
         self.cam = camera_from_config(cfg)
         self.state = TrackState.NO_IMAGES_YET
@@ -142,7 +146,9 @@ class Tracking:
 
     def _rebase_on_map_correction(self) -> bool:
         """Re-anchor the cached pose state when the reference keyframe moved
-        (see the reference's _rebase_on_map_correction)."""
+        (local BA, or a cull that leaves it resolved through its parent): the
+        last frame's pose relative to that keyframe is kept, see the
+        reference's _rebase_on_map_correction."""
         if self.last_pose is None or self._ref_anchor is None:
             return False
         k, R_old, t_old = self._ref_anchor
@@ -225,6 +231,8 @@ class Tracking:
         self._bind_cur = mp_bind
         self._record_frame(frame_id, timestamp, lost=False)
         self._stash_last_frame(frame, frame_id)
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(k, frame)
         return True
 
     def _track_reference_kf(self, frame: Frame) -> bool:
@@ -537,6 +545,8 @@ class Tracking:
         self.ref_kf = k
         self.last_kf_frame_id = frame_id
         self._bind_cur = bind
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(k, frame)
 
     # ------------------------------------------------------------------
     def _set_metrics(self, frame_id: int, timestamp: float, kf_created: bool):

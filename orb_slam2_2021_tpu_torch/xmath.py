@@ -28,3 +28,13 @@ def smm(a, b):
 def smv(a, v):
     """[..., m, k] @ [..., k] -> [..., m]."""
     return torch.sum(a * v[..., None, :], dim=-1)
+
+
+def stmv(a, v):
+    """sum_k a[..., k, m] * v[..., k] -> [..., m] (a^T v)."""
+    return torch.sum(a * v[..., :, None], dim=-2)
+
+
+def souter(a, b):
+    """sum_r a[..., r, m] * b[..., r, n] -> [..., m, n] (J^T J blocks)."""
+    return torch.sum(a[..., :, :, None] * b[..., :, None, :], dim=-3)

@@ -1,14 +1,16 @@
-"""The stereo tracking lane of the PyTorch port end to end, held against the
-JAX reference System on the same rendered 320x240 sequence, synchronous,
-mapping off; and the port's independence from JAX.
+"""The PyTorch port's System end to end, held against the JAX reference
+System on the same rendered 320x240 sequence, synchronous: the stereo
+tracking lane with mapping off, and with local mapping and the occupancy
+grid on (loop closing off); and the port's independence from JAX.
 
-The reference System gets the small packaged vocabulary: with mapping off no
-keyframe ever enters its keyframe database, so its relocalization always
-falls back to the reference-keyframe search, which is what the port runs
-without place recognition. Tracking is therefore the same algorithm on both
-sides.
+The reference System gets the small packaged vocabulary: with loop closing
+off no keyframe ever enters its keyframe database, so its relocalization
+always falls back to the reference-keyframe search, which is what the port
+runs without place recognition. Tracking is therefore the same algorithm on
+both sides.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -74,7 +76,57 @@ def test_slice_matches_reference_system():
         f"ATE {ate_t:.4f} m vs the reference's {ate_r:.4f} m (tolerance 1 mm)"
 
 
-def test_reset_on_early_loss_matches_reference():
+def test_mapping_on_matches_reference_system():
+    """20 frames with local mapping and the grid on: keyframes at frames 0,
+    15 and 19, the first local BA at frame 19."""
+    from orb_slam2_2021_tpu.pipeline.system import System as JSystem
+    from orb_slam2_2021_tpu.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
+    from orb_slam2_2021_tpu.place.vocab import BinaryVocabulary
+
+    n = 20
+    cfg = synthetic_config(width=320, height=240)
+    world = SyntheticStereoWorld(cfg, seed=3)
+    gt = forward_trajectory(n, step=0.12)
+    ref = JSystem(cfg, enable_mapping=True, enable_loop_closing=False,
+                  place_rec=PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL)))
+    port = TSystem(cfg, enable_mapping=True, enable_loop_closing=False, device="cpu")
+    worst = 0.0
+    for i, (R, t) in enumerate(gt):
+        left, right = world.render(R, t)
+        pr = ref.track_stereo(left, right, timestamp=0.1 * i)
+        pt = port.track_stereo(left, right, timestamp=0.1 * i)
+        assert (pr is None) == (pt is None), f"frame {i}: tracked flags differ"
+        assert port.map.n_kf == ref.map.n_kf, f"frame {i}: keyframe counts differ"
+        if pr is not None:
+            worst = max(worst, np.abs(pt[1] - pr[1]).max(), np.abs(pt[0] - pr[0]).max())
+        n_r, n_t = int(ref.map.mp_valid.sum()), int(port.map.mp_valid.sum())
+        assert abs(n_t - n_r) <= 0.01 * n_r, f"frame {i}: {n_t} vs {n_r} map points (tolerance 1%)"
+    ref.shutdown()
+    port.shutdown()
+    # measured: poses within 9.5e-5 m and 5.4e-6 in R; map points identical
+    assert worst < 1e-3, f"poses differ by {worst:.2e} (tolerance 1 mm / 1e-3)"
+    assert [m["state"] for m in port.metrics] == [m["state"] for m in ref.metrics]
+    assert [m["keyframe"] for m in port.metrics] == [m["keyframe"] for m in ref.metrics]
+    assert np.nonzero([m["keyframe"] for m in port.metrics])[0].tolist() == [0, 15, 19]
+    assert len(port.local_mapper.ba_solve_times) == len(ref.local_mapper.ba_solve_times) == 1
+    assert all(r["ms_mapping"] >= 0 for r in port.metrics)
+    assert np.array_equal(port.map.kf_valid, ref.map.kf_valid)
+    for k in np.nonzero(ref.map.kf_valid)[0]:
+        assert np.abs(port.map.kf_t[k] - ref.map.kf_t[k]).max() < 1e-3, "keyframe t: 1 mm"
+    est_t, est_r = port.trajectory_kitti(), ref.trajectory_kitti()
+    ate_t, ate_r = ate_rmse(est_t, _gt_mats(gt)), ate_rmse(est_r, _gt_mats(gt))
+    assert np.isfinite(ate_t) and abs(ate_t - ate_r) < 1e-3, \
+        f"ATE {ate_t:.4f} m vs the reference's {ate_r:.4f} m (tolerance 1 mm)"
+    # the grid is built from the (1e-4 m apart) map: a ray whose end lies on
+    # a cell boundary can land in the neighbour cell (measured: 4 of 108
+    # occupied cells differ); the occupied sets must overlap by 90%
+    occ_t = port.occupancy_grid().data == 100
+    occ_r = ref.occupancy_grid().data == 100
+    assert occ_r.sum() > 50 and (occ_t & occ_r).sum() >= 0.9 * occ_r.sum()
+    assert len(port.point_cloud()) == len(ref.point_cloud())
+
+
+def _reset_on_early_loss(mapping: bool):
     """Initialize, then show a frame of an unrelated world: both systems lose
     track with a small map, reset, and re-initialize on the next frame."""
     from orb_slam2_2021_tpu.pipeline.system import System as JSystem
@@ -86,9 +138,9 @@ def test_reset_on_early_loss_matches_reference():
     worlds = [SyntheticStereoWorld(cfg, seed=3), SyntheticStereoWorld(cfg, seed=11)]
     frames = [worlds[0].render(*gt[0]), worlds[0].render(*gt[1]),
               worlds[1].render(*gt[2]), worlds[1].render(*gt[2])]
-    ref = JSystem(cfg, enable_mapping=False,
+    ref = JSystem(cfg, enable_mapping=mapping, enable_loop_closing=False,
                   place_rec=PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL)))
-    port = TSystem(cfg, enable_mapping=False, device="cpu")
+    port = TSystem(cfg, enable_mapping=mapping, enable_loop_closing=False, device="cpu")
     states = []
     for i, (left, right) in enumerate(frames):
         pr = ref.track_stereo(left, right, timestamp=0.1 * i)
@@ -99,20 +151,45 @@ def test_reset_on_early_loss_matches_reference():
     assert states[2] == ("LOST", "LOST") and port._reset_requested is False
     assert states[3] == ("OK", "OK") and port.map.n_kf == 1, "re-initialized after the reset"
     assert len(port.trajectory_kitti()) == len(ref.trajectory_kitti()) == 1
+    return port, ref
+
+
+def test_reset_on_early_loss_matches_reference():
+    _reset_on_early_loss(mapping=False)
+
+
+def test_reset_with_mapping_matches_reference():
+    """The reset order with mapping on: the mapping queue and its device
+    keyframe store, the map, the tracker, then the grid (rebuilt from the
+    new map's one keyframe)."""
+    port, ref = _reset_on_early_loss(mapping=True)
+    assert int(port.map.mp_valid.sum()) == int(ref.map.mp_valid.sum())
+    assert not port.local_mapper.queue and port.local_mapper._devkf.uploaded[0]
+    assert np.array_equal(port.occupancy_grid().data, ref.occupancy_grid().data)
 
 
 def test_unported_modes_raise():
     cfg = synthetic_config(width=320, height=240)
     for kwargs in ({}, {"enable_mapping": False, "async_mode": True},
                    {"enable_mapping": False, "sensor": "mono"},
-                   {"enable_mapping": False, "place_rec": object()}):
-        with pytest.raises(NotImplementedError):
-            TSystem(cfg, **kwargs)
+                   {"enable_mapping": False, "place_rec": object()},
+                   {"enable_loop_closing": False, "async_mode": True},
+                   {"enable_loop_closing": False,
+                    "cfg": cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False))}):
+        kwargs = dict(kwargs)
+        with pytest.raises(NotImplementedError) as err:
+            TSystem(kwargs.pop("cfg", cfg), **kwargs)
+        if not kwargs:
+            assert "loop closing" in str(err.value) and "step 9" in str(err.value)
+    sys_ = TSystem(cfg, enable_loop_closing=False)
+    assert sys_.local_mapper is not None and sys_.grid_mapper is not None
+    assert sys_.occupancy_grid().data.shape == (cfg.gridmap.size_z, cfg.gridmap.size_x)
 
 
 def test_port_runs_without_jax():
-    """Two frames through the port's System in a process where importing
-    jax fails; the package must not pull in any JAX-using reference module."""
+    """Frames through the port's System, mapping off and on, in a process
+    where importing jax fails; the package must not pull in any JAX-using
+    reference module."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -128,6 +205,12 @@ def test_port_runs_without_jax():
         poses = [s.track_stereo(*world.render(R, t), timestamp=0.1 * i)
                  for i, (R, t) in enumerate(forward_trajectory(2, step=0.12))]
         assert all(p is not None for p in poses), poses
+        s = System(cfg, enable_mapping=True, enable_loop_closing=False, device="cpu")
+        poses = [s.track_stereo(*world.render(R, t), timestamp=0.1 * i)
+                 for i, (R, t) in enumerate(forward_trajectory(3, step=0.12))]
+        s.shutdown()
+        assert all(p is not None for p in poses), poses
+        assert (s.occupancy_grid().data == 100).sum() > 0
         bad = sorted(m for m in sys.modules if m.startswith("orb_slam2_2021_tpu.")
                      and m.split(".")[1] not in ("config", "mapping", "native", "io"))
         assert not bad, bad
