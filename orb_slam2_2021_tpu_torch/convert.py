@@ -18,6 +18,7 @@ from .frontend.frame import Frame
 from .geometry.camera import PinholeCamera
 from .optim.assemble import upload_problem
 from .optim.ba import BAProblem
+from .optim.sim3_opt import PoseGraph
 from .pipeline.mapping_steps import KFView
 
 
@@ -129,3 +130,27 @@ def track_inputs_from_reference(last_geom, last_slot, pose_pack,
         desc_from_numpy(snap_desc, device),
         tensor(snap_valid, device, torch.bool),
     )
+
+
+def pose_graph_from_reference(g, device) -> PoseGraph:
+    """The reference's PoseGraph (optim/sim3_opt.py) -> the port's, edge
+    indices as int64."""
+    f32 = torch.float32
+    return PoseGraph(
+        s=tensor(g.s, device, f32), R=tensor(g.R, device, f32), t=tensor(g.t, device, f32),
+        edge_i=tensor(g.edge_i, device, torch.int64), edge_j=tensor(g.edge_j, device, torch.int64),
+        m_s=tensor(g.m_s, device, f32), m_R=tensor(g.m_R, device, f32),
+        m_t=tensor(g.m_t, device, f32), weight=tensor(g.weight, device, f32),
+        fixed=tensor(g.fixed, device, torch.bool),
+    )
+
+
+def vocab_tree_from_numpy(node_desc, device) -> torch.Tensor:
+    """[n_nodes, 8] uint32 vocabulary tree -> int32 tensor with the same bits."""
+    return desc_from_numpy(node_desc, device)
+
+
+def samples_from_reference(idx, device) -> torch.Tensor:
+    """RANSAC minimal sets drawn by the reference ([n_hyps, m] indices, from
+    `jax.random.choice` under its keys) -> int64 index tensor."""
+    return tensor(idx, device, torch.int64)

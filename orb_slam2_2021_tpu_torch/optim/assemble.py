@@ -150,3 +150,9 @@ def upload_problem(prob: BAProblem, device) -> BAProblem:
             v, np.int64 if name in _INDEX_FIELDS else None)).to(device)
         for name, v in zip(BAProblem._fields, prob)
     ))
+
+
+def global_problem_shapes(n_cams: int, n_pts: int, n_obs: int) -> Tuple[int, int, int]:
+    """Power-of-two padded (C, P, O) of the all-keyframe global problem; the
+    camera bucket also picks the solver (reduced system up to 128)."""
+    return _bucket(n_cams, 64), _bucket(n_pts, 1024), _bucket(n_obs, 4096)

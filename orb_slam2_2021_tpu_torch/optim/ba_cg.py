@@ -1,6 +1,9 @@
-"""Local bundle adjustment: LM over the materialized reduced camera system
-with block-Jacobi PCG (counterpart of orb_slam2_2021_tpu/optim/ba_cg.py,
-the PQ-layout chunk path `make_lm_chunk_pq` -> `_cg_lm_step_rcs`).
+"""Bundle adjustment by LM with block-Jacobi PCG on the reduced camera
+system (counterpart of orb_slam2_2021_tpu/optim/ba_cg.py): local BA and
+global BA up to 128 cameras on the materialized system of the PQ layout
+(`make_lm_chunk_pq` -> `_cg_lm_step_rcs`), global BA above that on the flat
+layout with the system applied matrix-free (`make_gba_iteration` ->
+`_cg_lm_step`).
 
 Observations are laid out per point (obs index o = p*Q + q): point-side
 reductions are a reshape-sum over Q and camera-side reductions a product
@@ -9,11 +12,19 @@ card rather than `index_add_`: float atomics are not deterministic, and the
 CUDA and CPU solves must agree. Every accept/reject and PCG guard is a
 `torch.where`, so a solve never waits on the device.
 
-Global BA (`_cg_lm_step_pq`, `_cg_lm_step`, `ba_solve_cg*`) belongs to loop
-closing and is not ported yet (ROADMAP.md queue 1, step 9).
+In the flat layout observations are in any order; camera-side sums are
+again products with the [O, C] one-hot, and point-side sums gather each
+point's observations through a [P, Qmax] table (`FlatIndex`) and sum over
+Qmax. No float atomics either way, so the card repeats its solve exactly.
+
+Not ported (ROADMAP.md): `_cg_lm_step_pq` (reached only through the
+reference's `make_local_ba_cg_pq` / `make_lm_iteration_pq`, which the
+System does not call) and `ba_solve_cg*`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -217,3 +228,135 @@ def lm_chunk_pq(cam, prob: BAProblem, R, t, xw, lam, active, use_huber: bool,
         xw = torch.where(improved, xwn, xw)
         lam = torch.where(improved, lam * 0.5, lam * 4.0)
     return R, t, xw, lam, classify_inliers(cam, prob, R, t, xw, cfg)
+
+
+# ---------------------------------------------------------------------------
+# flat layout: global BA above 128 cameras
+# ---------------------------------------------------------------------------
+class FlatIndex(NamedTuple):
+    """Reduction operands of a flat-layout problem: the [O, C] camera
+    one-hot and the [P, Qmax] observation table (-1 pads) of each point."""
+    onehot: torch.Tensor
+    pt_table: torch.Tensor
+
+
+def flat_index(prob: BAProblem) -> FlatIndex:
+    """Build the reduction operands once per problem (one device -> host
+    read for the largest per-point observation count)."""
+    P = prob.xw.shape[0]
+    pts = torch.where(prob.obs_valid, prob.obs_pt, torch.full_like(prob.obs_pt, P))
+    order = torch.argsort(pts, stable=True)                  # valid obs by point, in obs order
+    counts = torch.bincount(pts, minlength=P + 1)[:P]
+    q_max = max(int(counts.max()), 1) if P else 1
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(order.shape[0], device=pts.device) - starts[pts[order].clamp_max(P - 1)]
+    table = torch.full((P + 1, q_max), -1, dtype=torch.int64, device=pts.device)
+    keep = pts[order] < P
+    table[pts[order][keep], rank[keep]] = order[keep]
+    return FlatIndex(_cam_onehot(prob), table[:P])
+
+
+def _to_points(index: FlatIndex, x):
+    """Per-point sums of per-observation rows x [O, k] -> [P, k]."""
+    t = index.pt_table
+    return (x[t.clamp_min(0)] * (t >= 0)[..., None].to(x.dtype)).sum(dim=1)
+
+
+def _blocks(cam, prob: BAProblem, index: FlatIndex, R, t, xw, active, lam,
+            use_huber: bool, cfg):
+    """Per-iteration block system: damped U, V^-1, per-observation W and the
+    gradients."""
+    C = prob.R.shape[0]
+    P = prob.xw.shape[0]
+    O = prob.obs_cam.shape[0]
+    r, Jc, Jp, chi2, behind = _residual_jacobians(cam, prob, R, t, xw)
+    is_stereo = prob.obs_uvr[:, 2] >= 0
+    delta2 = torch.where(is_stereo, torch.full_like(chi2, cfg.chi2_stereo),
+                         torch.full_like(chi2, cfg.chi2_mono))
+    wh = huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
+    w = prob.obs_inv_sigma2 * wh * active
+    Jc = Jc * prob.cam_free[prob.obs_cam][:, None, None]
+    Jcw = Jc * w[:, None, None]
+    Jpw = Jp * w[:, None, None]
+    oh_t = index.onehot.transpose(0, 1)
+    U = (oh_t @ souter(Jcw, Jc).reshape(O, 36)).reshape(C, 6, 6)
+    V = _to_points(index, souter(Jpw, Jp).reshape(O, 9)).reshape(P, 3, 3)
+    b_c = oh_t @ stmv(Jcw, r)
+    b_p = _to_points(index, stmv(Jpw, r))
+    Wcp = souter(Jcw, Jp)                                            # [O,6,3]
+    U_d = _damp(U, lam, 6)
+    U_d = torch.where(prob.cam_free[:, None, None], U_d,
+                      torch.eye(6, dtype=R.dtype, device=R.device)[None])
+    V_inv = _inv3x3(_damp(V, lam, 3))
+    return Wcp, U_d, V_inv, b_c, b_p, chi2, behind, delta2
+
+
+def _cg_lm_step(cam, prob: BAProblem, index: FlatIndex, R, t, xw, active, lam,
+                use_huber: bool, cfg, cg_iters: int):
+    """One damped LM step with PCG on the implicit reduced camera system."""
+    Wcp, U_d, V_inv, b_c, b_p, chi2, behind, delta2 = _blocks(
+        cam, prob, index, R, t, xw, active, lam, use_huber, cfg)
+    C = prob.R.shape[0]
+    free = prob.cam_free[:, None]
+    oh_t = index.onehot.transpose(0, 1)
+
+    Vb = smv(V_inv, b_p)
+    b_corr = oh_t @ smv(Wcp, Vb[prob.obs_pt])
+    rhs = -(b_c - b_corr) * free
+
+    def S_apply(x):
+        """(U_d - W V^-1 W^T) x without materializing S."""
+        wtx = _to_points(index, stmv(Wcp, x[prob.obs_cam]))
+        corr = oh_t @ smv(Wcp, smv(V_inv, wtx)[prob.obs_pt])
+        return (smv(U_d, x) - corr) * free
+
+    M_inv = _inv6x6_spd(U_d)
+
+    def precond(v):
+        return smv(M_inv, v) * free
+
+    x = torch.zeros_like(rhs)
+    rr = rhs
+    z = precond(rr)
+    p = z
+    rz = torch.sum(rr * z)
+    tiny = torch.full_like(rz, 1e-20)
+    zero = torch.zeros_like(rz)
+    for _ in range(cg_iters):
+        Sp = S_apply(p)
+        pSp = torch.sum(p * Sp)
+        alpha = rz / torch.where(torch.abs(pSp) < 1e-20, tiny, pSp)
+        alive = rz > 1e-18
+        alpha = torch.where(alive, alpha, zero)
+        x = x + alpha * p
+        rr = rr - alpha * Sp
+        z = precond(rr)
+        rz_new = torch.sum(rr * z)
+        beta = torch.where(alive, rz_new / torch.where(rz < 1e-20, tiny, rz), zero)
+        p = z + beta * p
+        rz = rz_new
+    delta_c = x.reshape(C, 6) * free
+
+    wt_dc = _to_points(index, stmv(Wcp, delta_c[prob.obs_cam]))
+    delta_p = -smv(V_inv, b_p + wt_dc)
+    dR, dt = se3_exp(delta_c)
+    R_new, t_new = se3_compose(dR, dt, R, t)
+    return R_new, t_new, xw + delta_p, chi2, behind, delta2
+
+
+def gba_iteration(cam, prob: BAProblem, index: FlatIndex, R, t, xw, lam, active,
+                  use_huber: bool, cfg):
+    """One LM iteration of flat-layout global BA (the reference's
+    `make_gba_iteration` step), accepted only when it lowers the robust
+    cost. Returns (R, t, xw, lam, cost_new)."""
+    Rn, tn, xwn, chi2, _, delta2 = _cg_lm_step(
+        cam, prob, index, R, t, xw, active, lam, use_huber, cfg, cfg.cg_iters)
+    cost_old = _total_cost(chi2, active, delta2, use_huber)
+    chi2_new, _ = _residual_chi2(cam, prob, Rn, tn, xwn)
+    cost_new = _total_cost(chi2_new, active, delta2, use_huber)
+    improved = cost_new < cost_old
+    R = torch.where(improved, Rn, R)
+    t = torch.where(improved, tn, t)
+    xw = torch.where(improved, xwn, xw)
+    lam = torch.where(improved, lam * 0.5, lam * 4.0)
+    return R, t, xw, lam, cost_new

@@ -8,11 +8,13 @@ Per inserted keyframe (LocalMapping::Run):
      (CreateNewMapPoints) and neighbour fusion both ways (SearchInNeighbors),
      as bounded device units with one device -> host copy each;
   4. local bundle adjustment (reduced-camera LM with PCG, optim/ba_cg.py);
-  5. keyframe culling (KeyFrameCulling).
+  5. keyframe culling (KeyFrameCulling);
+  6. with a loop closer attached, the keyframe and its BoW words go to loop
+     closing, which runs inline.
 
 Not ported yet (ROADMAP.md): the async worker, its abort and pacing
-(step 11); monocular mapping (step 10); `_fuse_points_into`, which only loop
-closing uses (step 9); the dense BA path `use_cg_local_ba=False`.
+(step 11); monocular mapping (step 10); the dense BA path
+`use_cg_local_ba=False`.
 """
 
 from __future__ import annotations
@@ -122,11 +124,12 @@ class LocalMapping:
         self.map = map_store
         self.device = torch.device(device)
         self.cam = camera_from_config(cfg)
-        self.queue: Deque[int] = deque()
+        self.queue: Deque[tuple] = deque()  # (keyframe, BoW words or None)
         self.recent: Dict[int, int] = {}  # mp id -> created-at kf id
         self.abort_ba = False  # mbAbortBA: set by a newly inserted keyframe
         self.ba_solve_times: List[tuple] = []  # (seconds, lm_iterations)
         self._devkf: Optional[DeviceKFStore] = None
+        self.loop_closer = None  # set by System when loop closing is on
 
     def _store(self) -> DeviceKFStore:
         if self._devkf is None:
@@ -134,11 +137,12 @@ class LocalMapping:
         self._devkf.maybe_grow(self.map.kf_capacity)
         return self._devkf
 
-    def insert_keyframe(self, k: int, frame):
-        """Queue keyframe k, copying the features of the live frame it was
+    def insert_keyframe(self, k: int, words, frame):
+        """Queue keyframe k with its BoW words (None without place
+        recognition), copying the features of the live frame it was
         promoted from into the device store."""
         self._store().set_from_frame(k, frame)
-        self.queue.append(k)
+        self.queue.append((k, words))
         self.abort_ba = True
         mps = self.map.kf_mp[k]
         for m in mps[mps >= 0]:
@@ -154,10 +158,10 @@ class LocalMapping:
 
     def process_pending(self):
         while True:
-            k = self._pop()
-            if k is None:
+            item = self._pop()
+            if item is None:
                 return
-            self._process(k)
+            self._process(*item)
 
     def request_reset(self):
         """RequestReset: drop the queued keyframes so the caller can clear
@@ -168,7 +172,7 @@ class LocalMapping:
         if self._devkf is not None:
             self._devkf.reset()
 
-    def _process(self, k: int):
+    def _process(self, k: int, words=None):
         """The per-keyframe pipeline."""
         if not self.map.kf_valid[k]:
             return
@@ -178,6 +182,9 @@ class LocalMapping:
             self._local_ba(k)
         self._cull_keyframes(k)
         self.map.write_epoch += 1  # the tracker's snapshot cache must refresh
+        if self.loop_closer is not None:
+            self.loop_closer.insert_keyframe(k, words)
+            self.loop_closer.process_pending()
 
     # ------------------------------------------------------------------
     def _kf_views(self, ks, unbound_only: bool) -> KFView:
@@ -364,6 +371,23 @@ class LocalMapping:
         return [(ids[s: s + FUSE_POINTS_PER_UNIT],
                  self._point_tensors(ids[s: s + FUSE_POINTS_PER_UNIT]), view)
                 for s in range(0, len(ids), FUSE_POINTS_PER_UNIT)]
+
+    def _fuse_points_into(self, ids: np.ndarray, kt: int):
+        """Fuse the points `ids` into keyframe kt (loop closing's
+        SearchAndFuse): snapshot, one device unit per FUSE_POINTS_PER_UNIT
+        points, one device -> host copy, merge."""
+        units = self._snapshot_fuse_into(ids, kt)
+        if not units:
+            return
+        outs = []
+        for _, pts, view in units:
+            best_feat, accept, _ = fuse_project(self.cam, view, *pts, self.cfg)
+            outs += [accept[0], best_feat[0]]
+        pulled = to_host(*outs)
+        if not self.map.kf_valid[kt]:
+            return
+        for u, (sel, _, _) in enumerate(units):
+            self._merge_fuse(sel, pulled[2 * u], pulled[2 * u + 1], kt)
 
     def _merge_fuse(self, sel, accept, best_feat, kt: int):
         """Apply fuse matches: add an observation or merge duplicate points

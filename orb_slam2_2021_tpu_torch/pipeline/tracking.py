@@ -8,14 +8,17 @@ trajectory export. Device work runs in `track_steps`; this class owns the
 numpy-side feature -> map-point bindings and the shared host MapStore.
 
 With a LocalMapping attached, every new keyframe (the stereo initialization
-and each later one) is handed to it together with the live frame, whose
-device tensors it copies; synchronous mapping is always idle, so the
-keyframe decision keeps its rule.
+and each later one) is handed to it together with its BoW words and the live
+frame, whose device tensors it copies; synchronous mapping is always idle,
+so the keyframe decision keeps its rule.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): place
-recognition (so relocalization is the reference-keyframe search, exactly the
-reference's path when its keyframe database is empty), localization-only
-mode, monocular and RGB-D input.
+With place recognition, a lost frame relocalizes against the keyframe
+database: BoW candidates, descriptor matching (K1), EPnP RANSAC and the
+motion-only refine with its two-stage window escalation; without it (or
+when no candidate succeeds) it falls back to the reference-keyframe search.
+
+Not ported yet (see ROADMAP.md): localization-only mode, monocular and RGB-D
+input.
 """
 
 from __future__ import annotations
@@ -30,9 +33,23 @@ import torch
 from orb_slam2_2021_tpu.config import SlamConfig
 from orb_slam2_2021_tpu.mapping.map_store import MapStore
 
-from ..convert import camera_from_config, desc_from_numpy, desc_to_numpy, tensor
+from ..convert import camera_from_config, desc_from_numpy, desc_to_numpy, tensor, to_host
 from ..frontend.frame import Frame
-from .track_steps import bow_track_step, frame_pack_step, fused_track_step, local_track_step
+from ..frontend.matchers import match_bruteforce_desc
+from ..solvers.epnp import MIN_SAMPLE, epnp_ransac
+from ..solvers.horn_sim3 import sample_indices
+from .track_steps import (
+    bow_track_step, frame_pack_step, fused_track_step, local_track_step, motion_track_step,
+)
+
+PNP_HYPS = 256  # EPnP RANSAC hypotheses per relocalization candidate
+
+
+def reloc_samples(valid, m: int, n_hyps: int, seed: int):
+    """The relocalization RANSAC's minimal sets for one candidate keyframe:
+    a host generator seeded per candidate, as the reference seeds its key
+    with kc + 17."""
+    return sample_indices(valid, m, n_hyps, torch.Generator().manual_seed(seed))
 
 
 class TrackState(Enum):
@@ -81,11 +98,11 @@ class FrameRecord:
 class Tracking:
     def __init__(self, cfg: SlamConfig, map_store: MapStore, device,
                  local_mapper=None, place_rec=None):
-        if place_rec is not None:
-            raise NotImplementedError("place recognition is not ported yet (ROADMAP.md queue 1, step 6)")
         self.cfg = cfg
         self.map = map_store
         self.local_mapper = local_mapper  # None = mapping off
+        self.place = place_rec            # PlaceRecognition or None
+        self.reloc_sampler = reloc_samples
         self.device = torch.device(device)
         self.cam = camera_from_config(cfg)
         self.state = TrackState.NO_IMAGES_YET
@@ -232,7 +249,7 @@ class Tracking:
         self._record_frame(frame_id, timestamp, lost=False)
         self._stash_last_frame(frame, frame_id)
         if self.local_mapper is not None:
-            self.local_mapper.insert_keyframe(k, frame)
+            self.local_mapper.insert_keyframe(k, host["words"], frame)
         return True
 
     def _track_reference_kf(self, frame: Frame) -> bool:
@@ -270,9 +287,88 @@ class Tracking:
         return min(1.0, self.cfg.orb.n_features / 2000.0)
 
     def _relocalize(self, frame: Frame, frame_id: int) -> bool:
-        """Relocalization without a keyframe database: the reference-keyframe
-        search (the reference's path when its database has no candidate)."""
+        """Relocalization: keyframe-database candidates first, then the
+        reference-keyframe search."""
+        if self.place is not None and self._relocalize_bow(frame, frame_id):
+            return True
         return self._track_reference_kf(frame)
+
+    def _relocalize_bow(self, frame: Frame, frame_id: int) -> bool:
+        """Per candidate (the first five): descriptor matching, EPnP RANSAC
+        on the matched (point, pixel) pairs, then the motion-only refine,
+        widened and narrowed as the reference does when too few inliers
+        remain."""
+        host = self._frame_host_arrays(frame)
+        cands = self.place.kfdb.detect_reloc_candidates(
+            host["words"], lambda x: self.map.covisible_keyframes(x, 10))
+        if not cands:
+            return False
+        n = frame.n
+        sigma2 = self.map.scale_factors ** 2
+        dev = self.device
+        c = self.cfg
+        for kc in cands[:5]:
+            kc = int(kc)
+            if not self.map.kf_valid[kc]:
+                continue
+            mp = self.map.kf_mp[kc]
+            feat_ok = (mp >= 0) & self.map.mp_valid[np.clip(mp, 0, None)]
+            if feat_ok.sum() < 15:
+                continue
+            kf_desc = desc_from_numpy(self.map.kf_desc[kc], dev)
+            kf_ok = self._dev(feat_ok)
+            kf_angle = self._dev(self.map.kf_angle[kc])
+            best_b, accept, _ = match_bruteforce_desc(
+                frame.kp.desc, frame.kp.valid, frame.kp.angle, kf_desc, kf_ok, kf_angle)
+            accept, best_b = to_host(accept, best_b)
+            if accept.sum() < 15:
+                continue
+            fidx = np.nonzero(accept)[0]
+            xw = np.zeros((n, 3), np.float32)
+            uv = np.zeros((n, 2), np.float32)
+            s2 = np.ones(n, np.float32)
+            valid = np.zeros(n, bool)
+            xw[fidx] = self.map.mp_pos[mp[best_b[fidx]]]
+            uv[fidx] = host["xy"][fidx]
+            s2[fidx] = sigma2[host["octave"][fidx]]
+            valid[fidx] = True
+            idx = self.reloc_sampler(valid, MIN_SAMPLE, PNP_HYPS, kc + 17).to(dev)
+            R, t, _, n_in = epnp_ransac(idx, self._dev(xw), self._dev(uv), self._dev(s2),
+                                        self._dev(valid), c.fx, c.fy, c.cx, c.cy)
+            R, t, n_in = to_host(R, t, n_in)
+            if int(n_in) < 10:
+                continue
+            ids = np.where(feat_ok, mp, -1)
+            lm = (self._dev(self.map.mp_pos[np.clip(mp, 0, None)]), kf_desc,
+                  self._dev(self.map.kf_octave[kc]), kf_angle, kf_ok)
+            min_good = max(15, int(round(50 * self._feature_scale())))
+            r0 = c.tracking.reloc_search_radius
+
+            def refine(R_c, t_c, radius):
+                Rn, tn, slot, inlier, n_opt, _ = motion_track_step(
+                    self.cam, frame.kp, frame.u_right, self._dev(R_c), self._dev(t_c),
+                    *lm, radius, c)
+                Rn, tn, slot, inlier, n_opt = to_host(Rn, tn, slot, inlier, n_opt)
+                return Rn, tn, slot, inlier, int(n_opt)
+
+            Rn, tn, slot, inlier, n_good = refine(R, t, r0)
+            if n_good < 10:
+                continue
+            if n_good < min_good:
+                # coarse-window escalation from the refined pose, then a
+                # narrow-window pass when it lands just short
+                Rn, tn, slot, inlier, n_good = refine(Rn, tn, 2.0 * r0)
+                if int(round(0.6 * min_good)) <= n_good < min_good:
+                    Rn, tn, slot, inlier, n_good = refine(Rn, tn, 0.4 * r0)
+            if n_good < min_good:
+                continue
+            self._apply_matches(ids, slot, inlier)
+            self.last_pose = (Rn, tn)
+            self.ref_kf = kc
+            self.velocity = None
+            self.last_reloc_frame_id = frame_id
+            return True
+        return False
 
     def _apply_matches(self, ids, slot, inlier):
         """Bind current-frame features to map-point ids given matcher slots."""
@@ -283,12 +379,16 @@ class Tracking:
 
     # ------------------------------------------------------------------
     def _frame_host_arrays(self, frame: Frame):
-        """Host views of a frame's feature data in one device -> host copy."""
+        """Host views of a frame's feature data, and its BoW words when place
+        recognition is on, in one device -> host copy."""
         if self._fh is not None and self._fh[0] is frame:
             return self._fh[1]
         f, desc = frame_pack_step(frame.kp, frame.u_right, frame.depth)
         n = f.shape[0]
-        pulled = torch.cat([f.view(torch.int32), desc], dim=1).cpu().numpy()
+        parts = [f.view(torch.int32), desc]
+        if self.place is not None:
+            parts.append(self.place.transform(frame.kp.desc, frame.kp.valid)[:, None])
+        pulled = torch.cat(parts, dim=1).cpu().numpy()
         f = pulled[:, :8].view(np.float32)
         host = {
             "xy": np.ascontiguousarray(f[:, :2]),
@@ -298,8 +398,8 @@ class Tracking:
             "octave": f[:, 5].astype(np.int32),
             "kp_valid": f[:, 6] > 0,
             "response": f[:, 7].copy(),
-            "desc": desc_to_numpy(pulled[:, 8:].reshape(n, 8)),
-            "words": None,
+            "desc": desc_to_numpy(pulled[:, 8:16].reshape(n, 8)),
+            "words": pulled[:, 16].copy() if self.place is not None else None,
         }
         self._fh = (frame, host)
         return host
@@ -546,7 +646,7 @@ class Tracking:
         self.last_kf_frame_id = frame_id
         self._bind_cur = bind
         if self.local_mapper is not None:
-            self.local_mapper.insert_keyframe(k, frame)
+            self.local_mapper.insert_keyframe(k, host["words"], frame)
 
     # ------------------------------------------------------------------
     def _set_metrics(self, frame_id: int, timestamp: float, kf_created: bool):

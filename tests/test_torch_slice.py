@@ -1,13 +1,14 @@
 """The PyTorch port's System end to end, held against the JAX reference
 System on the same rendered 320x240 sequence, synchronous: the stereo
 tracking lane with mapping off, and with local mapping and the occupancy
-grid on (loop closing off); and the port's independence from JAX.
+grid on (loop closing off); the modes still unported; and the port's
+independence from JAX. Loop closing at the defaults is held against the
+reference in tests/test_torch_loop.py.
 
-The reference System gets the small packaged vocabulary: with loop closing
-off no keyframe ever enters its keyframe database, so its relocalization
-always falls back to the reference-keyframe search, which is what the port
-runs without place recognition. Tracking is therefore the same algorithm on
-both sides.
+The reference System gets the small packaged vocabulary and the port its
+default one: with loop closing off no keyframe ever enters either keyframe
+database, so relocalization falls back to the reference-keyframe search on
+both sides. Tracking is therefore the same algorithm on both sides.
 """
 
 import dataclasses
@@ -169,27 +170,41 @@ def test_reset_with_mapping_matches_reference():
 
 
 def test_unported_modes_raise():
+    """The reference's defaults construct (place recognition from the
+    packaged vocabulary, loop closing on), as does a given PlaceRecognition;
+    async mode, other sensors and the dense local BA still raise."""
+    from orb_slam2_2021_tpu_torch.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
+    from orb_slam2_2021_tpu_torch.place.vocab import BinaryVocabulary
+
     cfg = synthetic_config(width=320, height=240)
-    for kwargs in ({}, {"enable_mapping": False, "async_mode": True},
-                   {"enable_mapping": False, "sensor": "mono"},
-                   {"enable_mapping": False, "place_rec": object()},
+    for kwargs in ({"async_mode": True}, {"enable_mapping": False, "async_mode": True},
+                   {"enable_mapping": False, "sensor": "mono"}, {"sensor": "rgbd"},
                    {"enable_loop_closing": False, "async_mode": True},
-                   {"enable_loop_closing": False,
-                    "cfg": cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False))}):
+                   {"cfg": cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False))}):
         kwargs = dict(kwargs)
         with pytest.raises(NotImplementedError) as err:
             TSystem(kwargs.pop("cfg", cfg), **kwargs)
-        if not kwargs:
-            assert "loop closing" in str(err.value) and "step 9" in str(err.value)
-    sys_ = TSystem(cfg, enable_loop_closing=False)
+        assert "ROADMAP.md" in str(err.value)
+    sys_ = TSystem(cfg)
+    assert sys_.loop_closer is not None and sys_.local_mapper.loop_closer is sys_.loop_closer
+    assert (sys_.place.voc.k, sys_.place.voc.L) == (10, 6)
+    assert sys_.map.on_kf_erased == sys_.place.kfdb.erase
+    with pytest.raises(NotImplementedError):
+        sys_.activate_localization_mode()
+    pr = PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL))
+    sys_ = TSystem(cfg, enable_mapping=False, place_rec=pr)
+    assert sys_.place is pr and sys_.tracker.place is pr and sys_.loop_closer is None
+    sys_ = TSystem(cfg, enable_loop_closing=False, place_rec=pr)
     assert sys_.local_mapper is not None and sys_.grid_mapper is not None
+    assert sys_.loop_closer is None and sys_.local_mapper.loop_closer is None
     assert sys_.occupancy_grid().data.shape == (cfg.gridmap.size_z, cfg.gridmap.size_x)
 
 
 def test_port_runs_without_jax():
-    """Frames through the port's System, mapping off and on, in a process
-    where importing jax fails; the package must not pull in any JAX-using
-    reference module."""
+    """Frames through the port's System, mapping off, mapping on, and at the
+    reference's defaults (place recognition and loop closing on), in a
+    process where importing jax fails; the package must not pull in any
+    JAX-using reference module (orb_slam2_2021_tpu.place included)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -211,6 +226,15 @@ def test_port_runs_without_jax():
         s.shutdown()
         assert all(p is not None for p in poses), poses
         assert (s.occupancy_grid().data == 100).sum() > 0
+        # the reference's defaults: packaged vocabulary, loop closing on
+        from orb_slam2_2021_tpu_torch.place.bundle import PlaceRecognition
+        assert PlaceRecognition.load_default().voc.L == 6
+        s = System(cfg, device="cpu")
+        poses = [s.track_stereo(*world.render(R, t), timestamp=0.1 * i)
+                 for i, (R, t) in enumerate(forward_trajectory(3, step=0.12))]
+        s.shutdown()
+        assert all(p is not None for p in poses), poses
+        assert s.loop_closer is not None and len(s.place.kfdb.bow) == s.map.n_kf == 1
         bad = sorted(m for m in sys.modules if m.startswith("orb_slam2_2021_tpu.")
                      and m.split(".")[1] not in ("config", "mapping", "native", "io"))
         assert not bad, bad
