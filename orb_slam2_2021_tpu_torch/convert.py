@@ -5,17 +5,24 @@ step, a keyframe view or a BA problem carries. These helpers turn the JAX
 package's arrays (anything `np.asarray` accepts, so this module imports no
 JAX) into the port's tensors on a given device. Descriptors travel as int32
 tensors holding the same 32 bits as the reference's uint32 words. `to_host`
-brings several device results back in one copy.
+brings several device results back in one copy. `config_from_reference` and
+`map_store_from_reference` rebuild a reference config or map store as the
+port's own types, reading the objects duck-typed.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import numpy as np
 import torch
 
+from . import config as port_config
 from .frontend.features import Keypoints
 from .frontend.frame import Frame
 from .geometry.camera import PinholeCamera
+from .mapping.map_store import MapStore
 from .optim.assemble import upload_problem
 from .optim.ba import BAProblem
 from .optim.sim3_opt import PoseGraph
@@ -154,3 +161,26 @@ def samples_from_reference(idx, device) -> torch.Tensor:
     """RANSAC minimal sets drawn by the reference ([n_hyps, m] indices, from
     `jax.random.choice` under its keys) -> int64 index tensor."""
     return tensor(idx, device, torch.int64)
+
+
+def config_from_reference(cfg) -> port_config.SlamConfig:
+    """A reference SlamConfig (or any object with its fields) -> the port's
+    SlamConfig, field by field; nested configs become the port's dataclass
+    of the same name."""
+    def rebuild(obj):
+        cls = getattr(port_config, type(obj).__name__)
+        return cls(**{f.name: rebuild(v) if dataclasses.is_dataclass(v) else v
+                      for f in dataclasses.fields(cls)
+                      for v in (getattr(obj, f.name),)})
+    return rebuild(cfg)
+
+
+def map_store_from_reference(store) -> MapStore:
+    """A reference MapStore -> the port's, with copies of its arrays,
+    counters and graph dictionaries (not its lock or callbacks)."""
+    out = MapStore(config_from_reference(store.cfg))
+    for name, value in vars(store).items():
+        if name in ("cfg", "lock", "on_kf_erased"):
+            continue
+        setattr(out, name, value.copy() if isinstance(value, np.ndarray) else copy.deepcopy(value))
+    return out

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.hamming import MAX_DIST, hamming_matrix
+from ..ops.hamming import hamming_best2
 from ..ops.image import pyramid_shapes
 from .features import Keypoints, extract_orb_batched, gather_patches, level_scales
 
@@ -65,10 +65,7 @@ def stereo_match(kpl: Keypoints, kpr: Keypoints, left_stack, right_stack,
     u_ok = (uR[None, :] >= uL[:, None] - max_d) & (uR[None, :] <= uL[:, None] - min_d)
     mask = row_ok & oct_ok & u_ok & kpl.valid[:, None] & kpr.valid[None, :]
 
-    dist = hamming_matrix(kpl.desc, kpr.desc)
-    d = torch.where(mask, dist, torch.full_like(dist, MAX_DIST))
-    best_idx = torch.argmin(d, dim=1)
-    best_dist = torch.gather(d, 1, best_idx[:, None])[:, 0]
+    best_idx, best_dist, _, _ = hamming_best2(kpl.desc, kpr.desc, mask)
     matched = best_dist < TH_ORB_STEREO
 
     # SAD subpixel refinement at the left keypoint's octave

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.camera import PinholeCamera
-from ..ops.hamming import MAX_DIST, best_two, hamming_matrix, rotation_histogram_filter
+from ..ops.hamming import MAX_DIST, hamming_best2, rotation_histogram_filter
 from .features import Keypoints, level_scales
 
 TH_HIGH = 100
@@ -73,10 +73,7 @@ def match_last_frame(cam: PinholeCamera, kp: Keypoints, feat_ur, R, t,
         & last_valid[:, None] & kp.valid[None, :]
         & (in_front & in_img)[:, None]
     )
-    dist = hamming_matrix(last_desc, kp.desc)
-    d = torch.where(mask, dist, torch.full_like(dist, MAX_DIST))
-    best_feat = torch.argmin(d, dim=1)
-    best_dist = torch.gather(d, 1, best_feat[:, None])[:, 0]
+    best_feat, best_dist, _, _ = hamming_best2(last_desc, kp.desc, mask)
     accept = best_dist <= TH_HIGH
     if cfg.matcher.check_orientation:
         accept = rotation_histogram_filter(
@@ -121,9 +118,7 @@ def match_local_points(cam: PinholeCamera, kp: Keypoints, feat_ur, feat_bound, R
     oct_ok = (kp.octave[None, :] >= pred[:, None] - 1) & (kp.octave[None, :] <= pred[:, None])
     mask = window & oct_ok & visible[:, None] & kp.valid[None, :] & ~feat_bound[None, :]
 
-    dist = hamming_matrix(mp_desc, kp.desc)
-    d = torch.where(mask, dist, torch.full_like(dist, MAX_DIST))
-    best_feat, best_dist, second_feat, second_dist = best_two(d)
+    best_feat, best_dist, second_feat, second_dist = hamming_best2(mp_desc, kp.desc, mask)
     accept = best_dist <= TH_HIGH
     # the ratio gate applies only when best and second share an octave
     same_lvl = kp.octave[best_feat] == kp.octave[second_feat]
@@ -140,10 +135,8 @@ def match_bruteforce_desc(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b,
                           histo_bins: int = 30, histo_keep: int = 3, th: int = TH_LOW):
     """Descriptor-only matching a -> b with ratio and rotation gates.
     Returns (best_b [A], accept [A], dist [A])."""
-    dist = hamming_matrix(desc_a, desc_b)
     mask = valid_a[:, None] & valid_b[None, :]
-    d = torch.where(mask, dist, torch.full_like(dist, MAX_DIST))
-    best_b, best, _, second = best_two(d)
+    best_b, best, _, second = hamming_best2(desc_a, desc_b, mask)
     accept = (best <= th) & (best.to(torch.float32) < nn_ratio * second.to(torch.float32))
     if check_orientation:
         accept = rotation_histogram_filter(angle_a, angle_b[best_b], accept, histo_bins, histo_keep)

@@ -9,9 +9,8 @@ orb_slam2_2021_tpu/pipeline/mapping_steps.py).
   T keyframes at once; the host applies the merge/add decisions.
 
 Both take the batched side with an explicit leading T axis (the reference
-vmaps the per-pair function). The shared side makes the Hamming distances
-one launch: `hamming_matrix(a [N, 8], b.reshape(T * M, 8))` viewed as
-[N, T, M].
+vmaps the per-pair function). The descriptor search is one launch of the
+fused matcher: `hamming_best2(a [N, 8], b [T, M, 8], mask [T, N, M])`.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import numpy as np
 import torch
 
 from ..geometry.camera import PinholeCamera
-from ..ops.hamming import MAX_DIST, hamming_matrix
+from ..ops.hamming import MAX_DIST, hamming_best2
 
 TH_LOW = 50
 TH_HIGH = 100
@@ -55,12 +54,6 @@ def _kinv(cam: PinholeCamera) -> np.ndarray:
     return np.array([[f32(1) / fx, 0, -(cx / fx)],
                      [0, f32(1) / fy, -(cy / fy)],
                      [0, 0, 1]], np.float32)
-
-
-def _hamming_batched(a, b):
-    """[N, 8] x [T, M, 8] -> [T, N, M] int16 in one kernel launch."""
-    T, M = b.shape[0], b.shape[1]
-    return hamming_matrix(a, b.reshape(T * M, 8)).view(a.shape[0], T, M).permute(1, 0, 2)
 
 
 def _rows(x, idx):
@@ -130,10 +123,7 @@ def triangulate_pair(cam: PinholeCamera, kf1: KFView, kf2: KFView, cfg):
     epipole_ok = (kf2.ur >= 0) | (de >= 100.0 * scale[kf2.octave.long()] ** 2)
 
     mask = kf1.valid[None, :, None] & kf2.valid[:, None, :] & epi_ok & epipole_ok[:, None, :]
-    dist = _hamming_batched(kf1.desc, kf2.desc)
-    d = torch.where(mask, dist, torch.full_like(dist, MAX_DIST))
-    best2 = torch.argmin(d, dim=2)                                      # [T,N]
-    bestd = torch.gather(d, 2, best2[..., None])[..., 0]
+    best2, bestd, _, _ = hamming_best2(kf1.desc, kf2.desc, mask)        # [T,N]
     matched = bestd <= TH_LOW
 
     xy2 = _rows(kf2.xy, best2)
@@ -275,8 +265,5 @@ def fuse_project(cam: PinholeCamera, kf: KFView,
     chi_ok = torch.where(kf.ur[:, None, :] >= 0, e2_st * isv <= 7.8, e2_mono * isv <= 5.99)
 
     mask = window & oct_ok & chi_ok & visible[..., None] & kf.valid[:, None, :]
-    dist = _hamming_batched(mp_desc, kf.desc)
-    d = torch.where(mask, dist, torch.full_like(dist, MAX_DIST))
-    best_feat = torch.argmin(d, dim=2)
-    best_dist = torch.gather(d, 2, best_feat[..., None])[..., 0]
+    best_feat, best_dist, _, _ = hamming_best2(mp_desc, kf.desc, mask)
     return best_feat.to(torch.int32), best_dist <= TH_LOW, best_dist

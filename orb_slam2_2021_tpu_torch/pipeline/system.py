@@ -18,12 +18,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from orb_slam2_2021_tpu.config import SlamConfig
-from orb_slam2_2021_tpu.mapping.map_store import MapStore
-
+from ..config import SlamConfig
 from ..convert import desc_from_numpy
 from ..frontend.frame import build_stereo_frame_from_u8
 from ..gridmap.grid import GridMapper
+from ..io.metrics import write_ndjson
+from ..io.persistence import load_map, save_map
+from ..io.trajectory import save_kitti
+from ..mapping.map_store import MapStore
 from ..place.bundle import PlaceRecognition
 from .local_mapping import LocalMapping
 from .loop_closing import LoopClosing
@@ -152,8 +154,6 @@ class System:
         return [T for _, T in self.tracker.trajectory()]
 
     def save_trajectory_kitti(self, path: str):
-        from orb_slam2_2021_tpu.io.trajectory import save_kitti
-
         save_kitti(path, self.trajectory_kitti())
 
     def timing_stats(self):
@@ -181,14 +181,10 @@ class System:
         raise NotImplementedError("localization mode is not ported yet (ROADMAP.md queue 1)")
 
     def save_metrics_ndjson(self, path: str) -> int:
-        from orb_slam2_2021_tpu.io.metrics import write_ndjson
-
         return write_ndjson(path, self.metrics)
 
     def save_map(self, path: str):
         """System::SaveMap: drain mapping, then write the map file."""
-        from orb_slam2_2021_tpu.io.persistence import save_map
-
         if self.local_mapper is not None:
             self.local_mapper.finish()
         save_map(path, self.map, next_frame_id=self._frame_id)
@@ -198,8 +194,6 @@ class System:
         """Boot from a map file: restore the map, recompute every keyframe's
         BoW words on the device against the loaded vocabulary, and start
         LOST so the first frame relocalizes."""
-        from orb_slam2_2021_tpu.io.persistence import load_map
-
         sys_ = cls(cfg, **kwargs)
         m, next_frame_id = load_map(path, cfg)
         sys_.map = m

@@ -30,12 +30,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from orb_slam2_2021_tpu.config import SlamConfig
-from orb_slam2_2021_tpu.mapping.map_store import MapStore
-
+from ..config import SlamConfig
 from ..convert import camera_from_config, desc_from_numpy, desc_to_numpy, tensor, to_host
 from ..frontend.frame import Frame
 from ..frontend.matchers import match_bruteforce_desc
+from ..mapping.map_store import MapStore
 from ..solvers.epnp import MIN_SAMPLE, epnp_ransac
 from ..solvers.horn_sim3 import sample_indices
 from .track_steps import (

@@ -16,6 +16,8 @@ import torch
 from .kf_database import KeyFrameDatabase
 from .vocab import BinaryVocabulary, load_orbvoc_text, vocab_transform
 
+# Data, not code: the 22 MB of vocabulary files stay in one place in the repo
+# rather than in a second copy beside the port.
 _DATA = os.path.join(os.path.dirname(__file__), "..", "..", "orb_slam2_2021_tpu", "data")
 PACKAGED_VOCAB_L6 = os.path.join(_DATA, "vocab_k10_L6.npz")     # 10^6 words
 PACKAGED_VOCAB = os.path.join(_DATA, "vocab_k10_L5.npz")

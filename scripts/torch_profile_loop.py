@@ -40,7 +40,7 @@ def main():
     import chip_smoke as cs
     from torch_profile_mapping import card_info, host_ms, profile
 
-    from orb_slam2_2021_tpu.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
     from orb_slam2_2021_tpu_torch.optim.sim3_opt import essential_graph_solve, optimize_sim3_relative
     from orb_slam2_2021_tpu_torch.pipeline.system import System
     from orb_slam2_2021_tpu_torch.place.bundle import PlaceRecognition

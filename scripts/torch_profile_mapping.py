@@ -68,8 +68,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_mapping: no CUDA device")
     sys.path.insert(0, REPO)
-    from orb_slam2_2021_tpu.config import kitti_stereo_config
-    from orb_slam2_2021_tpu.io.synthetic import SyntheticCylinderWorld, orbit_trajectory
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticCylinderWorld, orbit_trajectory
     from orb_slam2_2021_tpu_torch.convert import to_host
     from orb_slam2_2021_tpu_torch.optim.assemble import upload_problem
     from orb_slam2_2021_tpu_torch.optim.ba_cg import _cam_onehot, _cg_lm_step_rcs

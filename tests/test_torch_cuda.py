@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from orb_slam2_2021_tpu.config import synthetic_config
-from orb_slam2_2021_tpu.io.synthetic import SyntheticStereoWorld, forward_trajectory
+from chip_smoke import hamming_inputs  # edge-case descriptors and masks
+from orb_slam2_2021_tpu_torch.config import synthetic_config
+from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticStereoWorld, forward_trajectory
 from orb_slam2_2021_tpu_torch.ops import hamming as tham
 
 SHAPES = [(1, 1), (127, 129), (200, 150), (257, 64), (2000, 2000), (4096, 2000), (0, 5),
@@ -60,7 +61,7 @@ def test_lane_on_cuda_matches_cpu(cuda_device):
     world = SyntheticStereoWorld(cfg, seed=3)
     gpu = System(cfg, enable_mapping=False, device=cuda_device)
     cpu = System(cfg, enable_mapping=False, device="cpu")
-    tham.HAMMING_KERNEL.launches = 0
+    tham.HAMMING_KERNEL.launches = tham.HAMMING_BEST2_KERNEL.launches = 0
     for i, (R, t) in enumerate(forward_trajectory(6, step=0.12)):
         left, right = world.render(R, t)
         pg = gpu.track_stereo(left, right, timestamp=0.1 * i)
@@ -69,21 +70,59 @@ def test_lane_on_cuda_matches_cpu(cuda_device):
         if pg is not None:
             assert np.abs(pg[1] - pc[1]).max() < 1e-3, "t: tolerance 1 mm"
             assert np.abs(pg[0] - pc[0]).max() < 1e-3, "R: tolerance 1e-3"
-    assert tham.HAMMING_KERNEL.launches > 0, "the lane ran the Hamming kernel"
+    assert tham.HAMMING_BEST2_KERNEL.launches > 0, "the lane ran the fused Hamming kernel"
+    assert tham.HAMMING_KERNEL.launches == 0, "and never the matrix kernel"
 
 
 def test_mapping_hamming_batched_matches_plain(cuda_device):
     """Triangulation's call: one keyframe [N, 8] against T stacked
-    keyframes, one launch, viewed as [T, N, M]."""
-    from orb_slam2_2021_tpu_torch.pipeline.mapping_steps import _hamming_batched
-
+    keyframes under a [T, N, M] mask, one launch of the fused matcher."""
     rng = np.random.default_rng(5)
     a, b = _descs(rng, 2000, cuda_device), _descs(rng, 10 * 2000, cuda_device).view(10, 2000, 8)
-    launches = tham.HAMMING_KERNEL.launches
-    out = _hamming_batched(a, b)
-    assert tham.HAMMING_KERNEL.launches == launches + 1
-    ref = torch.stack([tham.hamming_matrix_plain(a, b[i]) for i in range(10)])
-    assert torch.equal(out, ref), "kernel vs plain: tolerance 0"
+    mask = torch.from_numpy(rng.random((10, 2000, 2000)) < 0.05).to(cuda_device)
+    launches = tham.HAMMING_BEST2_KERNEL.launches
+    out = tham.hamming_best2(a, b, mask)
+    assert tham.HAMMING_BEST2_KERNEL.launches == launches + 1
+    for x, y in zip(out, tham.hamming_best2_plain(a, b, mask)):
+        assert torch.equal(x, y), "kernel vs plain: tolerance 0"
+
+
+BEST2_SHAPES = [(1, 1, None), (127, 129, None), (200, 150, None), (300, 1, None), (257, 64, None),
+                (2000, 2000, None), (4096, 2000, None), (70, 1, 3), (130, 257, 4), (2000, 2000, 10)]
+
+
+@pytest.mark.parametrize("n,m,t", BEST2_SHAPES)
+def test_hamming_best2_kernel_matches_plain_and_repeats(cuda_device, n, m, t):
+    """The fused matcher against its plain version at the edge cases
+    (all-masked rows, M == 1, tied duplicate columns, one open column),
+    bit for bit, and the same on a second run."""
+    rng = np.random.default_rng(n + 3 * m + (t or 0))
+    a, b, mask = hamming_inputs(rng, n, m, t, 0.05 if n * m > 10 ** 5 else 0.4, cuda_device)
+    launches = tham.HAMMING_BEST2_KERNEL.launches
+    got, again = tham.hamming_best2(a, b, mask), tham.hamming_best2(a, b, mask)
+    torch.cuda.synchronize()
+    assert tham.HAMMING_BEST2_KERNEL.launches == launches + 2
+    for x, y, z in zip(got, tham.hamming_best2_plain(a, b, mask), again):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), "tolerance 0"
+        assert torch.equal(x, z), "repeatable run to run"
+    if n > 0:
+        assert int(got[1][..., 0].max()) == tham.MAX_DIST, "row 0 is all masked"
+
+
+def test_hamming_best2_ragged_mask_rows(cuda_device):
+    """A mask whose rows are not 16-byte aligned (M % 16 != 0) and one that
+    starts off a 16-byte boundary take the byte-wise path."""
+    rng = np.random.default_rng(9)
+    a, b, mask = hamming_inputs(rng, 100, 173, None, 0.3, cuda_device)
+    for x, y in zip(tham.hamming_best2(a, b, mask), tham.hamming_best2_plain(a, b, mask)):
+        assert torch.equal(x, y)
+    m176 = torch.cat([mask, torch.zeros((100, 3), dtype=torch.bool, device=cuda_device)], dim=1)
+    buf = torch.zeros(100 * 176 + 1, dtype=torch.bool, device=cuda_device)
+    buf[1:] = m176.reshape(-1)
+    shifted = buf[1:].view(100, 176)  # contiguous, rows 16-byte multiples, data_ptr % 16 == 1
+    b176 = torch.cat([b, b[:3]])
+    for x, y in zip(tham.hamming_best2(a, b176, shifted), tham.hamming_best2_plain(a, b176, shifted)):
+        assert torch.equal(x, y)
 
 
 def test_raycast_update_on_cuda_matches_cpu(cuda_device):
@@ -132,7 +171,7 @@ def _pq_problem(rng, n_cams=8, n_pts=400, q=4, noise=0.3):
 def test_lm_chunk_on_cuda_matches_cpu(cuda_device):
     """5 Huber + 10 plain LM iterations on the card and on the CPU: the same
     inlier mask, states within float32 summation-order noise."""
-    from orb_slam2_2021_tpu.config import OptimConfig
+    from orb_slam2_2021_tpu_torch.config import OptimConfig
     from orb_slam2_2021_tpu_torch.geometry.camera import PinholeCamera
     from orb_slam2_2021_tpu_torch.optim.ba_cg import lm_chunk_pq
 
@@ -299,7 +338,7 @@ def test_flat_gba_on_cuda_matches_cpu_and_repeats(cuda_device):
     """Flat-layout global BA iterations (the solver above 128 cameras): the
     card repeats its solve exactly (no float atomics) and agrees with the
     CPU within float32 summation-order noise."""
-    from orb_slam2_2021_tpu.config import OptimConfig
+    from orb_slam2_2021_tpu_torch.config import OptimConfig
     from orb_slam2_2021_tpu_torch.geometry.camera import PinholeCamera
     from orb_slam2_2021_tpu_torch.optim.ba import BAProblem
     from orb_slam2_2021_tpu_torch.optim.ba_cg import flat_index, gba_iteration

@@ -94,3 +94,94 @@ def test_wrapper_rejects_bad_inputs():
     launches = tham.HAMMING_KERNEL.launches
     tham.hamming_matrix(good, good)
     assert tham.HAMMING_KERNEL.launches == launches, "a CPU call launches no kernel"
+
+
+def _ref_best2(a, b, mask, pallas=False):
+    """The reference side of hamming_best2: the JAX Hamming matrix (XLA
+    formula, or the Pallas kernel in interpret mode), jnp.where with
+    MAX_DIST, then the first-occurrence rule: best = argmin, second = argmin
+    with the best entry set above every distance."""
+    hm = (lambda x, y: hamming_matrix_pallas(x, y, interpret=True)) if pallas else jham.hamming_matrix
+    bs = b[None] if b.ndim == 2 else b
+    ms = mask[None] if mask.ndim == 2 else mask
+    outs = []
+    for bt, mt in zip(bs, ms):
+        d = jnp.where(jnp.asarray(mt), hm(jnp.asarray(a), jnp.asarray(bt)), jham.MAX_DIST)
+        i1 = jnp.argmin(d, axis=1)
+        v1 = jnp.take_along_axis(d, i1[:, None], axis=1)[:, 0]
+        d2 = d.at[jnp.arange(d.shape[0]), i1].set(jham.MAX_DIST + 1)
+        i2 = jnp.argmin(d2, axis=1)
+        v2 = jnp.take_along_axis(d, i2[:, None], axis=1)[:, 0]
+        outs.append([np.asarray(x) for x in (i1, v1, i2, v2)])
+    out = [np.stack(x) for x in zip(*outs)]
+    return [x[0] for x in out] if b.ndim == 2 else out
+
+
+def _best2_inputs(rng, n, m, t, density):
+    """Descriptors with near-copies (small distances) and duplicated columns
+    (ties); a mask of the given density plus edge rows: row 0 all masked,
+    row 1 all open, row 2 open at one column only."""
+    tt = 1 if t is None else t
+    a = _descs(rng, n)
+    b = rng.integers(0, 2 ** 32, (tt, m, 8), dtype=np.uint32)
+    k = min(n, m) // 2
+    b[:, :k] = a[None, :k] ^ (rng.random((tt, k, 8)) < 0.05).astype(np.uint32)
+    if m >= 4:
+        b[:, m // 2:m // 2 + m // 4] = b[:, :m // 4]
+    mask = rng.random((tt, n, m)) < density
+    mask[:, 0] = False
+    mask[:, 1] = True
+    if n > 2:
+        mask[:, 2] = False
+        mask[:, 2, min(5, m - 1)] = True
+    return (a, b[0], mask[0]) if t is None else (a, b, mask)
+
+
+BEST2_CASES = [(70, 90, None), (129, 1, None), (40, 200, None), (33, 57, 3), (20, 1, 4)]
+
+
+@pytest.mark.parametrize("n,m,t", BEST2_CASES)
+def test_best2_plain_matches_reference(n, m, t):
+    rng = np.random.default_rng(n * 31 + m + (t or 0))
+    a, b, mask = _best2_inputs(rng, n, m, t, 0.3)
+    ref = _ref_best2(a, b, mask)
+    out = tham.hamming_best2_plain(desc_from_numpy(a, "cpu"), desc_from_numpy(b, "cpu"),
+                                   torch.from_numpy(mask))
+    lead = (n,) if t is None else (t, n)
+    for name, x, y, dt in zip(("best_idx", "best", "second_idx", "second"), out, ref,
+                              (torch.int64, torch.int16, torch.int64, torch.int16)):
+        assert x.dtype == dt and tuple(x.shape) == lead, name
+        assert np.array_equal(x.numpy(), y), f"{name} vs reference: tolerance 0"
+    if m == 1:
+        assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3]), "M == 1: second = best"
+    assert (out[1].numpy()[..., 0] == jham.MAX_DIST).all(), "an all-masked row's best is MAX_DIST"
+
+
+@pytest.mark.parametrize("t", [None, 2])
+def test_best2_plain_matches_pallas_reference(t):
+    rng = np.random.default_rng(40 + (t or 0))
+    a, b, mask = _best2_inputs(rng, 130, 140, t, 0.4)
+    ref = _ref_best2(a, b, mask, pallas=True)
+    out = tham.hamming_best2(desc_from_numpy(a, "cpu"), desc_from_numpy(b, "cpu"), torch.from_numpy(mask))
+    for x, y in zip(out, ref):
+        assert np.array_equal(x.numpy(), y), "port vs Pallas kernel (interpret) chain: tolerance 0"
+
+
+def test_best2_wrapper_cpu_and_rejects_bad_inputs():
+    rng = np.random.default_rng(8)
+    a, b, mask = _best2_inputs(rng, 20, 30, None, 0.5)
+    ta, tb, tm = desc_from_numpy(a, "cpu"), desc_from_numpy(b, "cpu"), torch.from_numpy(mask)
+    launches = tham.HAMMING_BEST2_KERNEL.launches
+    for x, y in zip(tham.hamming_best2(ta, tb, tm), tham.hamming_best2_plain(ta, tb, tm)):
+        assert torch.equal(x, y)
+    assert tham.HAMMING_BEST2_KERNEL.launches == launches, "a CPU call launches no kernel"
+    with pytest.raises(ValueError):
+        tham.hamming_best2(ta, tb, tm.to(torch.uint8))
+    with pytest.raises(ValueError):
+        tham.hamming_best2(ta, tb, tm[:, :29])
+    with pytest.raises(ValueError):
+        tham.hamming_best2(ta, tb, torch.from_numpy(np.ascontiguousarray(mask.T)).t())
+    with pytest.raises(ValueError):
+        tham.hamming_best2(ta, tb[:0], tm[:, :0])
+    with pytest.raises(ValueError):
+        tham.hamming_best2(ta, tb[None, None], tm)

@@ -29,6 +29,8 @@ from orb_slam2_2021_tpu.config import synthetic_config
 from orb_slam2_2021_tpu.io.persistence import load_map
 from orb_slam2_2021_tpu.io.synthetic import SyntheticCylinderWorld, orbit_trajectory
 from orb_slam2_2021_tpu.io.trajectory import ate_rmse
+from orb_slam2_2021_tpu_torch.convert import config_from_reference
+from orb_slam2_2021_tpu_torch.io.persistence import load_map as port_load_map
 from orb_slam2_2021_tpu_torch.pipeline.system import System as TSystem
 
 torch.set_num_threads(1)
@@ -108,7 +110,7 @@ REFERENCE_DRIVE = textwrap.dedent("""
 def _drive_port(n):
     cfg = synthetic_config(320, 240)
     world = SyntheticCylinderWorld(cfg, seed=3)
-    s = TSystem(cfg, device="cpu")
+    s = TSystem(config_from_reference(cfg), device="cpu")
     rec = {"tracked": [], "n_kf": [], "n_loops": [], "poses": [], "replay": [], "rebase": []}
     process_new, rebase = s.grid_mapper.process_new, s.tracker._rebase_on_map_correction
 
@@ -223,6 +225,7 @@ def _port_loop_closer(m, cfg):
     from orb_slam2_2021_tpu_torch.place.vocab import BinaryVocabulary
 
     pr = PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL))
+    cfg = config_from_reference(cfg)
     lc = LoopClosing(cfg, m, pr.kfdb, "cpu")
     lc.local_mapper = LocalMapping(cfg, m, "cpu")
     lc.local_mapper.loop_closer = lc
@@ -236,7 +239,7 @@ def test_compute_sim3_from_checkpoint(drives):
     ref, _, out = drives
     cfg = synthetic_config(320, 240)
     c = ref["sim3"]
-    m, _ = load_map(os.path.join(out, "sim3_ok.npz"), cfg)
+    m, _ = port_load_map(os.path.join(out, "sim3_ok.npz"), config_from_reference(cfg))
     lc = _port_loop_closer(m, cfg)
     lc.sampler = _reference_sim3_sampler(c["key"])
     res = lc._compute_sim3(c["k"], c["candidates"])
@@ -264,7 +267,7 @@ def test_correct_loop_from_checkpoint(drives):
     c = ref["correct"]
     path = os.path.join(out, "correct_entry.npz")
     mj, _ = load_map(path, cfg)
-    mt, _ = load_map(path, cfg)
+    mt, _ = port_load_map(path, config_from_reference(cfg))
     jlc = JLC(cfg, mj, PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL)).kfdb)
     jlc.local_mapper = JLM(cfg, mj)
     tlc = _port_loop_closer(mt, cfg)

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 
 from orb_slam2_2021_tpu.config import synthetic_config
 from orb_slam2_2021_tpu.io.synthetic import SyntheticStereoWorld, forward_trajectory
-from orb_slam2_2021_tpu_torch.convert import samples_from_reference
+from orb_slam2_2021_tpu_torch.convert import config_from_reference, samples_from_reference
 from orb_slam2_2021_tpu_torch.pipeline.system import System as TSystem
 
 torch.set_num_threads(1)
@@ -69,7 +69,7 @@ def test_relocalize_against_reloaded_map(saved_map, samples):
 
     cfg, path, frame, n_kf = saved_map
     ref = JSystem.from_map_file(cfg, path)
-    port = TSystem.from_map_file(cfg, path, device="cpu")
+    port = TSystem.from_map_file(config_from_reference(cfg), path, device="cpu")
     assert int(port.map.kf_valid.sum()) == n_kf and len(port.place.kfdb.bow) == n_kf
     for k in ref.place.kfdb.bow:
         assert np.array_equal(port.place.kfdb.bow[k][0], ref.place.kfdb.bow[k][0])
