@@ -504,7 +504,7 @@ def drive_kitti_mapping(dev, frames, gt):
     if matrix_launches != 0:
         raise AssertionError(f"the mapping drive launched hamming_matrix {matrix_launches} times")
     return {"launches": launches, "mapping_launches": counts["mapping"],
-            "keyframes": counts["keyframes"]}
+            "keyframes": counts["keyframes"], "matrix_launches": matrix_launches}
 
 
 def _sim3_matches(rng, n=500):
@@ -839,7 +839,8 @@ def drive_kitti_default(dev, frames, gt):
     if not err < 0.05 * length:
         raise AssertionError(f"relocalized {err:.3f} m away from the ground truth")
     return {"launches": launches, "mapping_launches": mapping_units,
-            "loop_launches": counts["loop_closing"], "shapes": sorted(shapes)}
+            "loop_launches": counts["loop_closing"], "shapes": sorted(shapes),
+            "matrix_launches": matrix_launches}
 
 
 def check_hamming_loop_shapes(dev, shapes):
@@ -909,7 +910,7 @@ def drive_kitti(dev):
         raise AssertionError("the lane drive never launched hamming_best2")
     if matrix_launches != 0:
         raise AssertionError(f"the lane drive launched hamming_matrix {matrix_launches} times")
-    return launches
+    return {"launches": launches, "matrix_launches": matrix_launches}
 
 
 def main():
@@ -932,7 +933,7 @@ def main():
 
     max_err, times = check_hamming(dev)
     check_small_against_cpu(dev)
-    lane_launches = drive_kitti(dev)
+    lane = drive_kitti(dev)
     err, mapping_times = check_hamming_mapping_shapes(dev)
     max_err = max(max_err, err)
     times.update(mapping_times)
@@ -955,8 +956,11 @@ def main():
             "launches_mapping_units": loop["mapping_launches"],
             "launches_loop_closing": loop["loop_launches"],
             "launches_mapping_drive": mapping["launches"],
-            "launches_lane_drive": lane_launches}),
-            ("hamming_matrix", {"launches": 0})):  # no main-path caller is left
+            "launches_lane_drive": lane["launches"]}),
+            ("hamming_matrix", {  # no main-path caller is left: each drive asserts 0
+                "launches": loop["matrix_launches"],
+                "launches_mapping_drive": mapping["matrix_launches"],
+                "launches_lane_drive": lane["matrix_launches"]})):
         head = times["lane"][name]  # the local-point search's shape, 4096 x 2000
         kernels.append({"name": name, **common, **launches,
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

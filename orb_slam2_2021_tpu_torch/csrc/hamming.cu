@@ -31,23 +31,15 @@
 //
 // Tile engine. A warp owns 32 rows (two m16 tiles) and walks 16 columns at a
 // time; the packed tiles sit in shared memory (48-byte row stride, no bank
-// conflicts). `dist16` returns the distances themselves. Two engines:
-//   - 1-bit (the launchers above): `mma.sync m16n8k256 .b1 .and.popc` reads
-//     the packed words as they are. Two products into one accumulator give
-//     the identity's two terms, popc(a) - <a,b> = popc(a AND NOT b) and
-//     popc(b) - <a,b> = popc(NOT a AND b), so the accumulator holds the
-//     distance (sm_90 has no native .xor.popc: ptxas lowers it to the same
-//     two products plus adds);
-//   - int8 (-DHAMMING_INT8 adds its launchers, hamming_*_int8_launch):
-//     `mma.sync m16n8k32 .s8` gives <bits_a, bits_b> from operands in {0, 1}
-//     unpacked in registers, not in shared memory: packed word k enters
-//     k-step k, and its register for shift s holds the bytes
-//     (x >> s) & 0x01010101, i.e. bits s, s+8, s+16, s+24. Both operands use
-//     the same permutation of the 256 bit positions, so the dot product is
-//     unchanged; popc(a), popc(b) come from 8 POPC per row, not per pair.
-// Both are exact (s32 accumulation). On an H100 the 1-bit engine ran both
-// launchers about twice as fast as int8 (PERF.md,
-// scripts/torch_probe_hamming.py), so it is the one the package builds.
+// conflicts). `dist16` returns the distances themselves from the 1-bit
+// `mma.sync m16n8k256 .b1 .and.popc`, which reads the packed words as they
+// are. Two products into one accumulator give the identity's two terms,
+// popc(a) - <a,b> = popc(a AND NOT b) and popc(b) - <a,b> = popc(NOT a AND b),
+// so the accumulator holds popc(a) + popc(b) - 2 <a,b>, exact in s32 (sm_90
+// has no native .xor.popc: ptxas lowers it to the same two products plus
+// adds). An int8 engine (`mma m16n8k32 .s8` on {0,1} bytes unpacked in
+// registers, popc(a), popc(b) from 8 POPC per row) ran both launchers 1.5-2x
+// slower on an H100 (PERF.md), hence the 1-bit products.
 //
 // The matrix launcher stages its 128x128 int16 tile in shared memory and
 // writes each row with 16-byte stores.
@@ -71,21 +63,12 @@ namespace {
 
 constexpr int kWords = 8;                 // 32-bit words per descriptor
 constexpr int kRowWords = 12;             // packed row stride in shared memory
-constexpr uint32_t kLowBits = 0x01010101u;
 constexpr int kIdxBits = 22;              // column bits of a 32-bit key
 constexpr uint32_t kIdxMask = (1u << kIdxBits) - 1u;
 constexpr uint32_t kNoKey = 0xFFFFFFFFu;  // above every real key
 constexpr uint32_t kMaxDist = 256;        // a masked entry's distance
 
 // ---------------------------------------------------------------- tile engine
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // c += popc(a AND b) over k = 256, per entry of a 16x8 tile.
 __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4],
@@ -96,87 +79,42 @@ __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The A fragments of a warp's 32 rows. Fragment layout of m16n8k32 (s8):
-// a0 = row g, a1 = row g+8, a2/a3 the same rows' upper 16 bytes of the
-// k-step; b0/b1 = column g, k bytes 4*tig.. and 16+4*tig..; c0,c1 = row g,
-// c2,c3 = row g+8, columns 2*tig, 2*tig+1. The 1-bit m16n8k256 takes packed
-// words: a0 = word tig of row g, a1 of row g+8, a2/a3 word tig+4; b0/b1
-// words tig, tig+4 of column g. The 1-bit engine keeps a and NOT a.
-template <bool B1>
+// The A fragments of a warp's 32 rows, a and NOT a: x[m-tile][a, NOT a].
+// Fragment layout of m16n8k256 (.b1), packed words: a0 = word tig of row g,
+// a1 of row g+8, a2/a3 word tig+4; b0/b1 = words tig, tig+4 of column g;
+// c0,c1 = row g, c2,c3 = row g+8, columns 2*tig, 2*tig+1.
 struct AFrags {
-  uint32_t x[2][B1 ? 2 : kWords][4];  // 1-bit: [m-tile][a, NOT a]; int8: [m-tile][k-step]
+  uint32_t x[2][2][4];
 };
 
-template <bool B1>
-__device__ __forceinline__ void load_a(AFrags<B1>& f, const uint32_t* sA, int r0,
-                                       int g, int tig) {
+__device__ __forceinline__ void load_a(AFrags& f, const uint32_t* sA, int r0, int g, int tig) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     const uint32_t* lo = sA + (r0 + mt * 16 + g) * kRowWords;
     const uint32_t* hi = lo + 8 * kRowWords;
-    if constexpr (B1) {
-      const uint32_t w[4] = {lo[tig], hi[tig], lo[tig + 4], hi[tig + 4]};
+    const uint32_t w[4] = {lo[tig], hi[tig], lo[tig + 4], hi[tig + 4]};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        f.x[mt][0][e] = w[e];
-        f.x[mt][1][e] = ~w[e];
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) {
-        f.x[mt][k][0] = (lo[k] >> tig) & kLowBits;
-        f.x[mt][k][1] = (hi[k] >> tig) & kLowBits;
-        f.x[mt][k][2] = (lo[k] >> (tig + 4)) & kLowBits;
-        f.x[mt][k][3] = (hi[k] >> (tig + 4)) & kLowBits;
-      }
+    for (int e = 0; e < 4; ++e) {
+      f.x[mt][0][e] = w[e];
+      f.x[mt][1][e] = ~w[e];
     }
   }
 }
 
 // Distances of the warp's 32 rows against columns [c, c + 16) of the staged
-// B tile: d[m-tile][n-tile][reg]. The int8 engine needs popc(a) of its rows
-// (pa[m-tile][row half]) and popc(b) of the tile's columns (spb).
-template <bool B1>
-__device__ __forceinline__ void dist16(int (&d)[2][2][4], const AFrags<B1>& f,
-                                       const uint32_t* sB, const int* spb, int c,
-                                       const int (&pa)[2][2], int g, int tig) {
+// B tile: d[m-tile][n-tile][reg].
+__device__ __forceinline__ void dist16(int (&d)[2][2][4], const AFrags& f, const uint32_t* sB,
+                                       int c, int g, int tig) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int q = 0; q < 2; ++q) {
+    const uint32_t* row = sB + (c + q * 8 + g) * kRowWords;
+    const uint32_t b0 = row[tig], b1 = row[tig + 4];
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
+    for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) d[mt][q][e] = 0;
-  if constexpr (B1) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const uint32_t* row = sB + (c + q * 8 + g) * kRowWords;
-      const uint32_t b0 = row[tig], b1 = row[tig + 4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_b1(d[mt][q], f.x[mt][0], ~b0, ~b1);  // popc(a AND NOT b)
-        mma_b1(d[mt][q], f.x[mt][1], b0, b1);    // + popc(NOT a AND b)
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const uint32_t w = sB[(c + q * 8 + g) * kRowWords + k];
-        const uint32_t b0 = (w >> tig) & kLowBits;
-        const uint32_t b1 = (w >> (tig + 4)) & kLowBits;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_s8(d[mt][q], f.x[mt][k], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int cl = c + q * 8 + 2 * tig;
-      const int pb[2] = {spb[cl], spb[cl + 1]};
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[mt][q][e] = pa[mt][e >> 1] + pb[e & 1] - 2 * d[mt][q][e];
+      mma_b1(d[mt][q], f.x[mt][0], ~b0, ~b1);  // popc(a AND NOT b)
+      mma_b1(d[mt][q], f.x[mt][1], b0, b1);    // + popc(NOT a AND b)
     }
   }
 }
@@ -193,12 +131,10 @@ __device__ __forceinline__ void load_row(const uint32_t* __restrict__ p, int row
   }
 }
 
-// Stage a row in shared memory; returns its popcount.
-__device__ __forceinline__ int store_row(uint32_t* s, const uint4& v0, const uint4& v1) {
+// Stage a row in shared memory.
+__device__ __forceinline__ void store_row(uint32_t* s, const uint4& v0, const uint4& v1) {
   reinterpret_cast<uint4*>(s)[0] = v0;
   reinterpret_cast<uint4*>(s)[1] = v1;
-  return __popc(v0.x) + __popc(v0.y) + __popc(v0.z) + __popc(v0.w) +
-         __popc(v1.x) + __popc(v1.y) + __popc(v1.z) + __popc(v1.w);
 }
 
 // ------------------------------------------------------------ matrix launcher
@@ -210,12 +146,9 @@ constexpr int kOutStride = kMatTile + 8;  // int16 per staged output row (272 B)
 struct MatSmem {
   uint32_t a[kMatTile * kRowWords];
   uint32_t b[kMatTile * kRowWords];
-  int pa[kMatTile];
-  int pb[kMatTile];
   int16_t out[kMatTile * kOutStride];
 };
 
-template <bool B1>
 __global__ void __launch_bounds__(kMatThreads)
 hamming_matrix_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                       int16_t* __restrict__ out, int n, int m) {
@@ -230,8 +163,7 @@ hamming_matrix_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict
     const int r = tid & (kMatTile - 1);
     uint4 v0, v1;
     load_row(is_a ? a : b, (is_a ? row0 : col0) + r, is_a ? n : m, v0, v1);
-    const int pc = store_row((is_a ? s.a : s.b) + r * kRowWords, v0, v1);
-    (is_a ? s.pa : s.pb)[r] = pc;
+    store_row((is_a ? s.a : s.b) + r * kRowWords, v0, v1);
   }
   __syncthreads();
 
@@ -239,18 +171,13 @@ hamming_matrix_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict
   const int g = lane >> 2, tig = lane & 3;
   const int wr = (warp & 3) * 32;   // warp's first row in the tile
   const int wc = (warp >> 2) * 64;  // warp's first column in the tile
-  AFrags<B1> f;
+  AFrags f;
   load_a(f, s.a, wr, g, tig);
-  int pa[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) pa[mt][h] = s.pa[wr + mt * 16 + g + 8 * h];
 
-#pragma unroll (B1 ? 2 : 1)
+#pragma unroll 2
   for (int c = wc; c < wc + 64; c += 16) {
     int d[2][2][4];
-    dist16(d, f, s.b, s.pb, c, pa, g, tig);
+    dist16(d, f, s.b, c, g, tig);
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int cl = c + q * 8 + 2 * tig;
@@ -294,8 +221,6 @@ constexpr uint32_t kNoKey16 = 0xFFFFu;    // above every real 16-bit key
 struct Best2Smem {
   uint32_t a[kFRows * kRowWords];
   uint32_t b[kFCols * kRowWords];
-  int pa[kFRows];
-  int pb[kFCols];
   uint8_t mask[kFRows * kMaskStride];  // 0x00 masked, 0xFF open
 };
 
@@ -343,7 +268,6 @@ __device__ __forceinline__ void load_chunk(Chunk& ch, const uint32_t* __restrict
   }
 }
 
-template <bool B1>
 __global__ void __launch_bounds__(kFThreads)
 hamming_best2_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                      const uint8_t* __restrict__ mask, uint2* __restrict__ part,
@@ -363,7 +287,7 @@ hamming_best2_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict_
   {
     uint4 v0, v1;
     load_row(a, row0 + tid, n, v0, v1);
-    s.pa[tid] = store_row(s.a + tid * kRowWords, v0, v1);
+    store_row(s.a + tid * kRowWords, v0, v1);
   }
   Chunk ch;
   if (c_begin < c_end) load_chunk(ch, b, mask, tid, row0, c_begin * kFCols, n, m, vec);
@@ -372,15 +296,13 @@ hamming_best2_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict_
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int wr = warp * 32;  // warp's first row in the block; it walks all columns
-  AFrags<B1> f;
+  AFrags f;
   load_a(f, s.a, wr, g, tig);
-  int pa[2][2];
   uint32_t k1[2][2], k2[2][2];  // the row's running best two, 32-bit keys
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      pa[mt][h] = s.pa[wr + mt * 16 + g + 8 * h];
       k1[mt][h] = kNoKey;
       k2[mt][h] = kNoKey;
     }
@@ -389,7 +311,7 @@ hamming_best2_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict_
   for (int cc = c_begin; cc < c_end; ++cc) {
     const int col0 = cc * kFCols;
     __syncthreads();  // the previous chunk's readers are done
-    s.pb[tid] = store_row(s.b + tid * kRowWords, ch.b0, ch.b1);
+    store_row(s.b + tid * kRowWords, ch.b0, ch.b1);
 #pragma unroll
     for (int j = 0; j < kMaskLoads; ++j) {
       const int i = tid + j * kFThreads;
@@ -413,7 +335,7 @@ hamming_best2_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict_
 #pragma unroll 2
     for (int c = 0; c < kFCols; c += 16) {
       int d[2][2][4];
-      dist16(d, f, s.b, s.pb, c, pa, g, tig);
+      dist16(d, f, s.b, c, g, tig);
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int cl = c + q * 8 + 2 * tig;  // even
@@ -492,33 +414,40 @@ int set_smem(const void* kernel, int bytes) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <bool B1>
-int matrix_launch(const void* a, const void* b, void* out, int n, int m, void* stream) {
+}  // namespace
+
+// a: [n, 8] words, b: [m, 8] words (both 16-byte aligned, contiguous);
+// out: [n, m] int16. Returns cudaGetLastError() after the launch.
+extern "C" int hamming_matrix_launch(const void* a, const void* b, void* out,
+                                     int n, int m, void* stream) {
   if (n <= 0 || m <= 0) return 0;
   const int smem = static_cast<int>(sizeof(MatSmem));
-  static const int attr = set_smem(reinterpret_cast<const void*>(hamming_matrix_kernel<B1>), smem);
+  static const int attr = set_smem(reinterpret_cast<const void*>(hamming_matrix_kernel), smem);
   if (attr != 0) return attr;
   const dim3 grid((m + kMatTile - 1) / kMatTile, (n + kMatTile - 1) / kMatTile);
-  hamming_matrix_kernel<B1><<<grid, kMatThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  hamming_matrix_kernel<<<grid, kMatThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<int16_t*>(out), n, m);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool B1>
-int best2_launch(const void* a, const void* b, const void* mask, void* part, void* best_idx,
-                 void* best, void* second_idx, void* second, int n, int m, int t, int slices,
-                 void* stream) {
+// a: [n, 8] words; b: [t, m, 8] words (16-byte aligned, contiguous); mask:
+// [t, n, m] bytes (0 = masked), contiguous; part: scratch of t * slices * n
+// uint2; outputs [t, n]: best_idx, second_idx int64, best, second int16.
+// m < 2^22. Returns cudaGetLastError() after the launches.
+extern "C" int hamming_best2_launch(const void* a, const void* b, const void* mask, void* part,
+                                    void* best_idx, void* best, void* second_idx, void* second,
+                                    int n, int m, int t, int slices, void* stream) {
   if (n <= 0 || m <= 0 || t <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(sizeof(Best2Smem));
-  static const int attr = set_smem(reinterpret_cast<const void*>(hamming_best2_kernel<B1>), smem);
+  static const int attr = set_smem(reinterpret_cast<const void*>(hamming_best2_kernel), smem);
   if (attr != 0) return attr;
   const int n_chunks = (m + kFCols - 1) / kFCols;
   const int per_slice = (n_chunks + slices - 1) / slices;
   const int vec = (m % 16 == 0) && (reinterpret_cast<uintptr_t>(mask) % 16 == 0);
   const dim3 grid((n + kFRows - 1) / kFRows, slices, t);
-  hamming_best2_kernel<B1><<<grid, kFThreads, smem, st>>>(
+  hamming_best2_kernel<<<grid, kFThreads, smem, st>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<const uint8_t*>(mask), static_cast<uint2*>(part), n, m, per_slice, vec);
   const int err = static_cast<int>(cudaGetLastError());
@@ -530,41 +459,3 @@ int best2_launch(const void* a, const void* b, const void* mask, void* part, voi
       static_cast<int16_t*>(second), n, rows, slices);
   return static_cast<int>(cudaGetLastError());
 }
-
-}  // namespace
-
-// The package's launchers run the 1-bit engine (measured faster than int8 on
-// an H100, PERF.md); -DHAMMING_INT8 adds the int8 engine's launchers beside.
-
-// a: [n, 8] words, b: [m, 8] words (both 16-byte aligned, contiguous);
-// out: [n, m] int16. Returns cudaGetLastError() after the launch.
-extern "C" int hamming_matrix_launch(const void* a, const void* b, void* out,
-                                     int n, int m, void* stream) {
-  return matrix_launch<true>(a, b, out, n, m, stream);
-}
-
-// a: [n, 8] words; b: [t, m, 8] words (16-byte aligned, contiguous); mask:
-// [t, n, m] bytes (0 = masked), contiguous; part: scratch of t * slices * n
-// uint2; outputs [t, n]: best_idx, second_idx int64, best, second int16.
-// m < 2^22. Returns cudaGetLastError() after the launches.
-extern "C" int hamming_best2_launch(const void* a, const void* b, const void* mask, void* part,
-                                    void* best_idx, void* best, void* second_idx, void* second,
-                                    int n, int m, int t, int slices, void* stream) {
-  return best2_launch<true>(a, b, mask, part, best_idx, best, second_idx, second,
-                            n, m, t, slices, stream);
-}
-
-#ifdef HAMMING_INT8
-extern "C" int hamming_matrix_int8_launch(const void* a, const void* b, void* out,
-                                          int n, int m, void* stream) {
-  return matrix_launch<false>(a, b, out, n, m, stream);
-}
-
-extern "C" int hamming_best2_int8_launch(const void* a, const void* b, const void* mask,
-                                         void* part, void* best_idx, void* best,
-                                         void* second_idx, void* second, int n, int m, int t,
-                                         int slices, void* stream) {
-  return best2_launch<false>(a, b, mask, part, best_idx, best, second_idx, second,
-                             n, m, t, slices, stream);
-}
-#endif

@@ -34,14 +34,14 @@ def find_nvcc() -> str:
 
 
 class CudaKernel:
-    """One hand-written kernel: its source, its C launcher, and a count of
-    launches that its Python wrapper increments each time it launches it."""
+    """One hand-written kernel: its source (a file name under csrc/, or an
+    absolute path), its C launcher, and a count of launches that its Python
+    wrapper increments each time it launches it."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence, defines: Sequence[str] = ()):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.launches = 0
         self._fn = None
 
@@ -51,13 +51,13 @@ class CudaKernel:
             return self._fn
         src = os.path.join(CSRC_DIR, self.source)
         with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(self.flags).encode()).hexdigest()[:16]
-        stem = os.path.splitext(self.source)[0]
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        stem = os.path.splitext(os.path.basename(self.source))[0]
         lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
         if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib_path}.{os.getpid()}.tmp"
-            cmd = [find_nvcc(), *self.flags, "-o", tmp, src]
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(

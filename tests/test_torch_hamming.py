@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import hamming_inputs  # shared with the card-only checks
 from orb_slam2_2021_tpu.ops import hamming as jham
 from orb_slam2_2021_tpu.ops.hamming_pallas import hamming_matrix_pallas
 from orb_slam2_2021_tpu_torch.convert import desc_from_numpy, desc_to_numpy
@@ -118,23 +119,11 @@ def _ref_best2(a, b, mask, pallas=False):
 
 
 def _best2_inputs(rng, n, m, t, density):
-    """Descriptors with near-copies (small distances) and duplicated columns
-    (ties); a mask of the given density plus edge rows: row 0 all masked,
-    row 1 all open, row 2 open at one column only."""
-    tt = 1 if t is None else t
-    a = _descs(rng, n)
-    b = rng.integers(0, 2 ** 32, (tt, m, 8), dtype=np.uint32)
-    k = min(n, m) // 2
-    b[:, :k] = a[None, :k] ^ (rng.random((tt, k, 8)) < 0.05).astype(np.uint32)
-    if m >= 4:
-        b[:, m // 2:m // 2 + m // 4] = b[:, :m // 4]
-    mask = rng.random((tt, n, m)) < density
-    mask[:, 0] = False
-    mask[:, 1] = True
-    if n > 2:
-        mask[:, 2] = False
-        mask[:, 2, min(5, m - 1)] = True
-    return (a, b[0], mask[0]) if t is None else (a, b, mask)
+    """chip_smoke's edge-case inputs (near-copies, duplicated columns for
+    ties, an all-masked, an all-open and a one-column row) on the CPU, as
+    numpy: uint32 words and a bool mask."""
+    a, b, mask = hamming_inputs(rng, n, m, t, density, "cpu")
+    return a.numpy().view(np.uint32), b.numpy().view(np.uint32), mask.numpy()
 
 
 BEST2_CASES = [(70, 90, None), (129, 1, None), (40, 200, None), (33, 57, 3), (20, 1, 4)]
