@@ -42,7 +42,21 @@ Phases (any failure exits nonzero before the result lines are printed):
      against the reference's), global BA, the grid replay and ATE; then save
      the map, boot from it on the card and relocalize a mid-orbit frame; and
      run the Hamming checks at the shapes loop closing gave the fused
-     launcher.
+     launcher;
+ 12. drive System(tum_rgbd_config("freiburg1"), sensor="rgbd") at the
+     defaults over 60 RGB-D frames rendered through the freiburg1 lens
+     (640x480, 2000 features), counting both launchers; check tracking,
+     keyframes and ATE against the JAX reference's numbers, that every Frame
+     tensor is on the card, and the TUM trajectory file read back;
+ 13. localization mode on that System: re-track frames 59 down to 40, no
+     keyframe or map point added, within the ATE bound; then localization
+     off and one new frame, on which mapping inserts a keyframe;
+ 14. drive System(tum_rgbd_config("freiburg1"), sensor="mono") over the same
+     frames' images: initialization frame, tracked frames and Sim3-aligned
+     ATE against the reference's; then the RGB-D, monocular and
+     localization Systems CUDA against the CPU path at 320x240,
+     two_view_init on the card against the CPU, and the Hamming checks at
+     the largest new shape these drives gave the fused launcher.
 
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -78,6 +92,20 @@ SMALL_MAP_FRAMES = 20
 # (map points) on an H100 80GB HBM3 at 700 W, see PERF.md
 SMALL_MAP_POSE_TOL = 1e-3     # m and rotation entries
 SMALL_MAP_POINTS_TOL = 0.02   # relative difference of live map-point counts
+# the other sensors at tum_rgbd_config("freiburg1") (640x480, 2000 features,
+# the freiburg1 lens, DepthMapFactor 5000): SyntheticStereoWorld(seed 4)
+# rendered through the lens on forward_trajectory(60, step 0.12); the
+# localization run re-tracks frames 59 down to 40
+TUM_FRAMES, TUM_STEP, TUM_SEED, LOC_FROM = 60, 0.12, 4, 40
+# the JAX reference System on the CPU over the same frames (ROADMAP.md,
+# PERF.md): RGB-D init at frame 0, 60/60 tracked, 10 keyframes, ATE 0.0581 m
+# over 7.159 m; re-tracked 20/20 in localization mode, ATE 0.0912 m, then a
+# keyframe on the next frame; monocular init at frame 5, 55/60 tracked, 45
+# keyframes, Sim3-aligned ATE 0.2857 m
+REF_RGBD = {"tracked": 60, "keyframes": 10, "ate": 0.0581, "loc_tracked": 20, "loc_ate": 0.0912}
+REF_MONO = {"init": 5, "tracked": 55, "keyframes": 45, "ate_sim3": 0.2857}
+SMALL_LENS = (0.25, -0.15, -0.002, 0.001, 0.0)  # the synthetic lens of tests/test_undistort.py
+SMALL_SENSOR_POSE_TOL = 1e-3
 
 
 def log(msg):
@@ -857,6 +885,24 @@ def check_hamming_loop_shapes(dev, shapes):
     return max_err, times
 
 
+def check_hamming_sensor_shapes(dev, shapes, loop_shapes):
+    """The fused launcher at the largest shape the RGB-D and monocular drives
+    gave it that phases 3, 6 and 11 did not already hold, exactly, with a
+    mask open at MAPPING_MASK_DENSITY; timed."""
+    known = {(n, m, 0) for n, m in SHAPES} | set(MAPPING_SHAPES) | set(loop_shapes)
+    new = sorted(shapes - known, key=lambda s: s[0] * s[1] * max(s[2], 1))
+    log(f"hamming_best2 shapes (N, M, T) in the RGB-D and monocular drives: {len(shapes)} distinct, "
+        f"{len(new)} not held before; largest {new[-1] if new else None}")
+    if not new:
+        return 0, {}
+    n, m, t = new[-1]
+    rng = np.random.default_rng(4)
+    a, b, mask = hamming_inputs(rng, n, m, t or None, MAPPING_MASK_DENSITY, dev)
+    label = f"{n}x{m}" + (f" T={t}" if t else "")
+    err = hold_hamming(a, b, mask, f"{label} (sensor-drive shape)")
+    return err, {f"sensors {label}": time_hamming(a, b, mask, f"{label} (sensor-drive shape)", iters=20)}
+
+
 def drive_kitti(dev):
     from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
     from orb_slam2_2021_tpu_torch.io.trajectory import ate_rmse
@@ -913,6 +959,429 @@ def drive_kitti(dev):
     return {"launches": launches, "matrix_launches": matrix_launches}
 
 
+_TUM_WORLD = None
+
+
+def _render_rgbd(pose):
+    R, t = pose
+    img, depth = _TUM_WORLD.render_rgbd(R, t, dist_coef=_TUM_WORLD.cfg.dist_coef)
+    # depth in the config's DepthMapFactor units, kept float32: uint16 would
+    # overflow past 13.1 m at a factor of 5000, and the world spans 4-28 m
+    return img, (depth * _TUM_WORLD.cfg.depth_map_factor).astype(np.float32)
+
+
+def render_tum(workers=4):
+    """TUM_FRAMES + 4 RGB-D frames of SyntheticStereoWorld(seed TUM_SEED) at
+    the freiburg1 configuration, through its lens, on
+    forward_trajectory(step TUM_STEP); forked like render_orbit, before
+    anything touches the card."""
+    import multiprocessing
+
+    from orb_slam2_2021_tpu_torch.config import tum_rgbd_config
+    from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticStereoWorld, forward_trajectory
+
+    global _TUM_WORLD
+    _TUM_WORLD = SyntheticStereoWorld(tum_rgbd_config("freiburg1"), seed=TUM_SEED)
+    gt = forward_trajectory(TUM_FRAMES + 4, step=TUM_STEP)
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("fork").Pool(workers) as pool:
+        frames = pool.map(_render_rgbd, gt, chunksize=4)
+    _TUM_WORLD = None
+    log(f"rendered {len(frames)} freiburg1 RGB-D frames in {time.perf_counter() - t0:.1f} s "
+        f"({workers} processes)")
+    return frames, gt
+
+
+class record_shapes:
+    """Within the block, every matcher's and mapping unit's hamming_best2
+    call adds its (N, M, T) to `shapes` (T = 0 for an [M, 8] side)."""
+
+    def __init__(self, shapes):
+        self.shapes = shapes
+
+    def __enter__(self):
+        from orb_slam2_2021_tpu_torch.frontend import matchers
+        from orb_slam2_2021_tpu_torch.ops.hamming import hamming_best2
+        from orb_slam2_2021_tpu_torch.pipeline import mapping_steps
+
+        def rec(x, y, mask):
+            self.shapes.add((int(x.shape[0]), int(y.shape[-2]), int(y.shape[0]) if y.dim() == 3 else 0))
+            return hamming_best2(x, y, mask)
+
+        self._undo = (matchers, mapping_steps, hamming_best2)
+        matchers.hamming_best2 = mapping_steps.hamming_best2 = rec
+        return self
+
+    def __exit__(self, *exc):
+        matchers, mapping_steps, fn = self._undo
+        matchers.hamming_best2 = mapping_steps.hamming_best2 = fn
+
+
+def _launch_counts():
+    from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
+
+    return HAMMING_BEST2_KERNEL.launches, HAMMING_KERNEL.launches
+
+
+def _zero_launch_counts():
+    from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
+
+    HAMMING_BEST2_KERNEL.launches = HAMMING_KERNEL.launches = 0
+
+
+def _check_drive_launches(name, best2, matrix):
+    log(f"{name}: hamming_best2 launches {best2}, hamming_matrix launches {matrix}")
+    if best2 <= 0:
+        raise AssertionError(f"the {name} never launched hamming_best2")
+    if matrix != 0:
+        raise AssertionError(f"the {name} launched hamming_matrix {matrix} times")
+
+
+def _read_tum(path):
+    rows = np.loadtxt(path, ndmin=2)
+    Ts = []
+    for r in rows:
+        qx, qy, qz, qw = r[4:8]
+        R = np.array([
+            [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw)],
+            [2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qx * qw)],
+            [2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx * qx + qy * qy)]])
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, r[1:4]
+        Ts.append(T)
+    return rows, Ts
+
+
+def _require_on_card(tensors, what):
+    if not all(t.device.type == "cuda" for t in tensors):
+        raise AssertionError(f"a tensor of {what} is not on the card")
+
+
+def drive_tum_rgbd(dev, frames, gt, shapes):
+    """Phase 12: System(tum_rgbd_config("freiburg1"), sensor="rgbd") at the
+    defaults over TUM_FRAMES frames; every Frame tensor on the card; the TUM
+    trajectory written and read back."""
+    import tempfile
+
+    from orb_slam2_2021_tpu_torch.config import tum_rgbd_config
+    from orb_slam2_2021_tpu_torch.frontend.frame import build_rgbd_frame
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    cfg = tum_rgbd_config("freiburg1")
+    sys_ = System(cfg, sensor="rgbd", device=dev)
+    if sys_.loop_closer is None or sys_.place.voc.L != 6:
+        raise AssertionError("the RGB-D System is not at the defaults")
+    img, depth = frames[0]
+    frame = build_rgbd_frame(torch.from_numpy(img).to(dev), torch.from_numpy(depth).to(dev), cfg,
+                             1.0 / cfg.depth_map_factor)
+    _require_on_card(list(frame.kp) + [frame.u_right, frame.depth, frame.sad_dist], "an RGB-D Frame")
+
+    _zero_launch_counts()
+    tracked = 0
+    with record_shapes(shapes):
+        for i in range(TUM_FRAMES):
+            img, depth = frames[i]
+            if sys_.track_rgbd(img, depth, timestamp=0.1 * i) is not None:
+                tracked += 1
+    best2, matrix = _launch_counts()
+    est = sys_.trajectory_kitti()
+    ate, length = _ate(est, gt[:TUM_FRAMES])
+    ms = 1e3 * np.asarray(sys_.frame_times)
+    kf_frames = [r["frame_id"] for r in sys_.metrics if r["keyframe"]]
+    log(f"phase 12, RGB-D drive {cfg.width}x{cfg.height}, {cfg.orb.n_features} features, freiburg1 "
+        f"lens: {tracked}/{TUM_FRAMES} tracked, {sys_.map.n_kf} live keyframes ({sys_.map.next_kf} "
+        f"created, at frames {kf_frames}), {int(sys_.map.mp_valid.sum())} live map points, "
+        f"{sys_.loop_closer.n_loops} loop(s), ATE {ate:.4f} m over {length:.3f} m (JAX reference on "
+        f"the CPU: {REF_RGBD['tracked']}/60, {REF_RGBD['keyframes']} keyframes, ATE {REF_RGBD['ate']} m)")
+    log(f"phase 12 per-frame ms (host clock): median {np.median(ms):.2f}, median after the first "
+        f"frame {np.median(ms[1:]):.2f}, max {ms.max():.2f}; "
+        f"{best2 / TUM_FRAMES:.1f} hamming_best2 launches per frame")
+    _check_drive_launches("RGB-D drive", best2, matrix)
+    if tracked < TUM_FRAMES - 2:
+        raise AssertionError(f"RGB-D: tracked {tracked}/{TUM_FRAMES} frames")
+    if sys_.map.next_kf < 2:
+        raise AssertionError(f"RGB-D: only {sys_.map.next_kf} keyframes")
+    if not (np.isfinite(ate) and ate < 0.05 * length):
+        raise AssertionError(f"RGB-D: ATE {ate:.4f} m is not below 5% of {length:.3f} m")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "traj_tum.txt")
+        sys_.save_trajectory_tum(path)
+        rows, Ts = _read_tum(path)
+    stamped = sys_.trajectory_tum()
+    qn = np.linalg.norm(rows[:, 4:8], axis=1)
+    dt = max(float(np.abs(A[:3, 3] - B[:3, 3]).max()) for A, B in zip(Ts, est))
+    dR = max(float(np.abs(A[:3, :3] - B[:3, :3]).max()) for A, B in zip(Ts, est))
+    ortho = max(float(np.abs(B[:3, :3] @ B[:3, :3].T - np.eye(3)).max()) for B in est)
+    dts = float(np.abs(rows[:, 0] - np.asarray([s for s, _ in stamped])).max())
+    log(f"phase 12 TUM file: {len(rows)} rows, quaternion norms within {np.abs(qn - 1).max():.2e} "
+        f"of 1, positions within {dt:.2e} and rotations within {dR:.2e} of trajectory_kitti() "
+        f"(whose rotations are orthonormal to {ortho:.2e}), stamps within {dts:.1e}")
+    # a quaternion's rotation is orthonormal, so it meets a float32 rotation
+    # only as closely as that rotation is orthonormal
+    if (len(rows) != TUM_FRAMES or np.abs(qn - 1).max() > 1e-6 or dt > 1e-6 or dts > 1e-6
+            or dR > ortho + 1e-6):
+        raise AssertionError("the TUM trajectory file does not read back as the trajectory")
+    return sys_, {"launches": best2, "matrix_launches": matrix, "ate": ate, "length": length,
+                  "est": est, "median_ms": float(np.median(ms))}
+
+
+def drive_localization(dev, sys_, frames, gt, rgbd):
+    """Phase 13: localization mode on phase 12's System, frames
+    TUM_FRAMES-1 down to LOC_FROM re-tracked (a revisit): no keyframe and no
+    map point added, the frames tracked within phase 12's ATE bound; then
+    localization off and new frames past the drive's end until mapping
+    inserts a keyframe (the reference did on the first)."""
+    est, length = rgbd["est"], rgbd["length"]
+    to_gt = _ate_alignment(est, gt[:TUM_FRAMES])
+    sys_.activate_localization_mode()
+    kf0, mp0 = int(sys_.map.next_kf), int(sys_.map.next_mp)
+    revisit = list(range(TUM_FRAMES - 1, LOC_FROM - 1, -1))
+    _zero_launch_counts()
+    errs, vo = [], []
+    t0 = len(sys_.frame_times)
+    for j, i in enumerate(revisit):
+        img, depth = frames[i]
+        pose = sys_.track_rgbd(img, depth, timestamp=10.0 + 0.1 * j)
+        vo.append(bool(sys_.tracker.vo_mode))
+        if pose is not None:
+            c = -pose[0].T @ pose[1]
+            errs.append(float(np.linalg.norm(to_gt(c) - gt[i][1])))
+    best2, matrix = _launch_counts()
+    ms = 1e3 * np.asarray(sys_.frame_times[t0:])
+    err = float(np.sqrt(np.mean(np.square(errs)))) if errs else float("inf")
+    n = len(revisit)
+    log(f"phase 13, localization mode on the RGB-D map: {len(errs)}/{n} re-tracked (frames "
+        f"{revisit[0]}..{revisit[-1]}), keyframes {kf0} -> {int(sys_.map.next_kf)}, map points "
+        f"{mp0} -> {int(sys_.map.next_mp)}, VO mode on {sum(vo)} frames, ATE of these frames "
+        f"{err:.4f} m (phase 12's alignment; bound 5% of {length:.3f} m; JAX reference: "
+        f"{REF_RGBD['loc_tracked']}/20, {REF_RGBD['loc_ate']} m); median {np.median(ms):.2f} ms")
+    _check_drive_launches("localization run", best2, matrix)
+    if int(sys_.map.next_kf) != kf0 or int(sys_.map.next_mp) != mp0:
+        raise AssertionError("localization mode added keyframes or map points")
+    if len(errs) < n - 2 or not err < 0.05 * length:
+        raise AssertionError(f"localization: {len(errs)}/{n} tracked, ATE {err:.4f} m")
+    sys_.deactivate_localization_mode()
+    after = []
+    for i in range(TUM_FRAMES, len(frames)):
+        after.append(sys_.track_rgbd(*frames[i], timestamp=20.0 + 0.1 * i) is not None)
+        if int(sys_.map.next_kf) > kf0:
+            break
+    sys_.shutdown()
+    log(f"phase 13, localization off: frames {TUM_FRAMES}..{TUM_FRAMES + len(after) - 1} tracked "
+        f"{after}, keyframes {kf0} -> {int(sys_.map.next_kf)} (JAX reference: a keyframe on frame "
+        f"{TUM_FRAMES})")
+    if not all(after) or int(sys_.map.next_kf) <= kf0:
+        raise AssertionError("mapping did not resume after localization mode")
+    return {"launches": best2, "matrix_launches": matrix}
+
+
+def drive_tum_mono(dev, frames, gt, shapes):
+    """Phase 14: System(tum_rgbd_config("freiburg1"), sensor="mono") at the
+    defaults over the same frames' images."""
+    from orb_slam2_2021_tpu_torch.config import tum_rgbd_config
+    from orb_slam2_2021_tpu_torch.io.trajectory import ate_rmse
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    cfg = tum_rgbd_config("freiburg1")
+    sys_ = System(cfg, sensor="mono", device=dev)
+    if sys_.loop_closer is None or sys_.loop_closer.fix_scale or not sys_.local_mapper.monocular:
+        raise AssertionError("the monocular System is not wired for a free scale")
+    _zero_launch_counts()
+    tracked, init = 0, None
+    with record_shapes(shapes):
+        for i in range(TUM_FRAMES):
+            if sys_.track_monocular(frames[i][0], timestamp=0.1 * i) is not None:
+                tracked += 1
+                init = i if init is None else init
+    sys_.shutdown()
+    best2, matrix = _launch_counts()
+    est = sys_.trajectory_kitti()
+    _, length = _ate(est, gt[:TUM_FRAMES])
+    gt_mats = []
+    for R, t in gt[TUM_FRAMES - len(est):TUM_FRAMES]:
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        gt_mats.append(T)
+    ate = ate_rmse(est, gt_mats, with_scale=True)
+    ms = 1e3 * np.asarray(sys_.frame_times)
+    bound = max(1.5 * REF_MONO["ate_sim3"], 0.30 * length)
+    log(f"phase 14, monocular drive {cfg.width}x{cfg.height}: initialized at frame {init}, "
+        f"{tracked}/{TUM_FRAMES} tracked, {sys_.map.n_kf} live keyframes ({sys_.map.next_kf} created), "
+        f"{int(sys_.map.mp_valid.sum())} live map points, {sys_.loop_closer.n_loops} loop(s), "
+        f"Sim3-aligned ATE {ate:.4f} m over {length:.3f} m (bound {bound:.4f} m; JAX reference on the "
+        f"CPU: init {REF_MONO['init']}, {REF_MONO['tracked']}/60, {REF_MONO['keyframes']} keyframes, "
+        f"ATE {REF_MONO['ate_sim3']} m)")
+    log(f"phase 14 per-frame ms (host clock): median {np.median(ms):.2f}, max {ms.max():.2f}; "
+        f"{best2 / TUM_FRAMES:.1f} hamming_best2 launches per frame")
+    _check_drive_launches("monocular drive", best2, matrix)
+    if init is None or init > REF_MONO["init"] + 3:
+        raise AssertionError(f"monocular: initialized at frame {init}")
+    if tracked < TUM_FRAMES - init - 2:
+        raise AssertionError(f"monocular: tracked {tracked}/{TUM_FRAMES} frames")
+    if not (np.isfinite(ate) and ate <= bound):
+        raise AssertionError(f"monocular: scaled ATE {ate:.4f} m above {bound:.4f} m")
+    return {"launches": best2, "matrix_launches": matrix, "median_ms": float(np.median(ms))}
+
+
+def _small_pair(systems, track, n_frames, tol, label, flag=None):
+    """Drive a CUDA and a CPU System (dict device -> System) with
+    `track(system, i)` over n_frames: same tracked flags, keyframe counts
+    and, with `flag(system)`, flags after every frame; poses within `tol`.
+    Returns the worst pose difference."""
+    worst = 0.0
+    g, c = systems["cuda"], systems["cpu"]
+    for i in range(n_frames):
+        pg, pc = track(g, i), track(c, i)
+        if (pg is None) != (pc is None) or g.map.next_kf != c.map.next_kf:
+            raise AssertionError(f"{label} frame {i}: CUDA and CPU tracking differ")
+        if flag is not None and flag(g) != flag(c):
+            raise AssertionError(f"{label} frame {i}: CUDA and CPU flags differ")
+        if pg is not None:
+            worst = max(worst, float(np.abs(pg[1] - pc[1]).max()), float(np.abs(pg[0] - pc[0]).max()))
+    if worst > tol:
+        raise AssertionError(f"{label}: CUDA vs CPU pose difference {worst:.2e} (tolerance {tol})")
+    return worst
+
+
+def check_sensors_small_against_cpu(dev):
+    """The RGB-D System through the synthetic lens, the monocular System and
+    localization mode, CUDA against the port's CPU path (held against the
+    JAX System by tests/test_torch_sensors.py) at 320x240, mapping on and
+    loop closing off: same tracked flags, keyframes (and VO flags), poses
+    within SMALL_SENSOR_POSE_TOL."""
+    from orb_slam2_2021_tpu_torch.config import synthetic_config
+    from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticStereoWorld, forward_trajectory
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    cfg = synthetic_config(width=320, height=240)
+    rcfg = cfg.replace(dist_coef=SMALL_LENS, depth_map_factor=5000.0)
+    world = SyntheticStereoWorld(rcfg, seed=4)
+    rgbd = []
+    for R, t in forward_trajectory(12, step=0.12):
+        img, depth = world.render_rgbd(R, t, dist_coef=SMALL_LENS)
+        rgbd.append((img, (depth * 5000.0).astype(np.float32)))
+    make = lambda c, **kw: {d: System(c, enable_loop_closing=False, device=d, **kw)  # noqa: E731
+                            for d in ("cuda", "cpu")}
+    worst = _small_pair(make(rcfg, sensor="rgbd"), lambda s, i: s.track_rgbd(*rgbd[i], timestamp=0.1 * i),
+                              12, SMALL_SENSOR_POSE_TOL, "RGB-D 320x240")
+    log(f"RGB-D 320x240 through the lens, 12 frames, CUDA vs CPU: same tracked flags and keyframes, "
+        f"max pose diff {worst:.2e} (tolerance {SMALL_SENSOR_POSE_TOL})")
+
+    world = SyntheticStereoWorld(cfg, seed=9)
+    mono = [world.render(R, t)[0] for R, t in forward_trajectory(16, step=0.12)]
+    systems = make(cfg, sensor="mono")
+    worst = _small_pair(systems, lambda s, i: s.track_monocular(mono[i], timestamp=0.1 * i),
+                              16, SMALL_SENSOR_POSE_TOL, "monocular 320x240")
+    init = [r["frame_id"] for r in systems["cuda"].metrics if r["state"] == "OK"][:1]
+    log(f"monocular 320x240, 16 frames, the same init_sampler seeds on both devices, CUDA vs CPU: "
+        f"initialized at frame {init[0] if init else None} on both, {systems['cuda'].map.next_kf} "
+        f"keyframes, max pose diff {worst:.2e} (tolerance {SMALL_SENSOR_POSE_TOL})")
+    if not init or systems["cuda"].map.next_kf < 3:
+        raise AssertionError("monocular 320x240: no initialization or no mapping keyframe")
+
+    world = SyntheticStereoWorld(cfg, seed=3)
+    gt = forward_trajectory(22, step=0.12)
+    stereo = [np.clip(np.stack(world.render(R, t)), 0, 255).astype(np.uint8) for R, t in gt]
+    systems = make(cfg)
+    for i in range(10):
+        for s in systems.values():
+            s.track_stereo(stereo[i][0], stereo[i][1], timestamp=0.1 * i)
+    saved = systems["cpu"].map.mp_valid.copy()
+    if not np.array_equal(saved, systems["cuda"].map.mp_valid):
+        raise AssertionError("localization 320x240: the maps differ before localization")
+    hide = np.nonzero(saved)[0][8:]
+    for s in systems.values():
+        s.activate_localization_mode()
+        s.map.mp_valid[hide] = False
+    kf0 = systems["cpu"].map.next_kf
+    # 6 frames forward with all but 8 map points hidden (VO points carry the
+    # pose), then the map back for 6 more frames forward: the reference-
+    # keyframe search relocalizes on the first and ends VO mode. Every count
+    # these decisions gate on stays far from its threshold. A jump back to
+    # mapped frames 4-7 instead (tests/test_torch_sensors.py) leaves the
+    # motion model a 1.6 m velocity, and its inlier count near the gate
+    # parts CUDA from the CPU (PERF.md)
+    order = list(range(10, 22))
+    vo = {"cuda": [], "cpu": []}
+
+    def track_loc(s, j):
+        if j == 6:
+            s.map.mp_valid[:] = saved
+        pose = s.track_stereo(stereo[order[j]][0], stereo[order[j]][1], timestamp=1.0 + 0.1 * j)
+        vo["cuda" if s is systems["cuda"] else "cpu"].append(s.tracker.vo_mode)
+        return pose
+
+    worst = _small_pair(systems, track_loc, len(order), SMALL_SENSOR_POSE_TOL, "localization 320x240",
+                        lambda s: s.tracker.vo_mode)
+    flags = "".join("1" if v else "0" for v in vo["cuda"])
+    log(f"localization mode 320x240, {len(order)} frames, CUDA vs CPU: same tracked flags and VO "
+        f"flags ({flags}), no keyframe added, max pose diff {worst:.2e} (tolerance "
+        f"{SMALL_SENSOR_POSE_TOL})")
+    if systems["cuda"].map.next_kf != kf0 or not any(vo["cuda"][:6]) or vo["cuda"][-1]:
+        raise AssertionError(f"localization 320x240: keyframes added or VO flags {flags}")
+
+
+def check_two_view(dev):
+    """two_view_init on the card against the CPU on one fixed scene and set
+    of samples (2000 matches, 256 minimal sets), with its eigenproblems in
+    float64 (the default, asserted) and in float32 (reported): the same
+    model choice and verdict, the `good` mask to 1%, and R and t within a
+    tenth of the CPU estimate's own error against the scene's truth (the
+    refit's float32 sums run in another order on the card)."""
+    from orb_slam2_2021_tpu_torch.geometry.so3 import so3_exp
+    from orb_slam2_2021_tpu_torch.solvers import two_view
+    from orb_slam2_2021_tpu_torch.solvers.horn_sim3 import sample_indices
+
+    rng = np.random.default_rng(11)
+    n, fx, cx, cy = 2000, 517.3, 318.6, 255.3
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(4, 12, n)], 1)
+    R = so3_exp(torch.tensor([0.01, -0.03, 0.005])).numpy().astype(np.float64)
+    t_true = np.array([0.3, 0.02, 0.05])
+    x2 = pts @ R.T + t_true
+    proj = lambda x: np.stack([fx * x[:, 0] / x[:, 2] + cx, fx * x[:, 1] / x[:, 2] + cy], 1)  # noqa: E731
+    p1 = (proj(pts) + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    p2 = (proj(x2) + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    bad = rng.random(n) < 0.2
+    p2[bad] += rng.uniform(-30, 30, (bad.sum(), 2)).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    idx = sample_indices(valid, 8, 256, torch.Generator().manual_seed(5))
+    args = [torch.from_numpy(p1), torch.from_numpy(p2), torch.from_numpy(valid)]
+    rows, ms = {}, None
+    default = two_view.EIG_DTYPE
+    for dtype in (torch.float64, torch.float32):
+        two_view.EIG_DTYPE = dtype
+        res = {}
+        for d in ("cpu", dev):
+            r = two_view.two_view_init(idx.to(d), *[a.to(d) for a in args], fx, fx, cx, cy)
+            res[str(d)] = [x.cpu() for x in r]
+        c, g = res["cpu"], res[str(dev)]
+        rows[dtype] = {"same_choice": bool(c[0] == g[0]) and bool(c[1] == g[1]),
+                       "ok": bool(c[0]), "used_h": bool(c[1]),
+                       "good_diff": int((c[5] != g[5]).sum()), "n_good": int(c[5].sum()),
+                       "dR": float((c[2] - g[2]).abs().max()), "dt": float((c[3] - g[3]).abs().max())}
+        if dtype == default:
+            cpu_default = c
+            dargs = [idx.to(dev)] + [a.to(dev) for a in args]
+            ms = time_ms(lambda: two_view.two_view_init(*dargs, fx, fx, cx, cy), iters=5, warm=2)
+    two_view.EIG_DTYPE = default
+    for dtype, r in rows.items():
+        log(f"two_view_init, 2000 matches, 256 sets, eigenproblems in {str(dtype)[6:]}: CUDA vs CPU "
+            f"same ok/used_h {r['same_choice']} (ok {r['ok']}, used_h {r['used_h']}), "
+            f"{r['good_diff']} of {r['n_good']} good flags differ, R within {r['dR']:.2e}, "
+            f"t within {r['dt']:.2e}")
+    r = rows[default]
+    R_cpu, t_cpu = cpu_default[2].double().numpy(), cpu_default[3].double().numpy()
+    tol_R = 0.1 * float(np.abs(R_cpu - R).max())
+    tol_t = 0.1 * float(np.abs(t_cpu / np.linalg.norm(t_cpu) - t_true / np.linalg.norm(t_true)).max())
+    log(f"two_view_init on the card ({str(default)[6:]} eigenproblems): {ms:.3f} ms; tolerances R "
+        f"{tol_R:.2e}, t {tol_t:.2e} (a tenth of the CPU estimate's error against the truth)")
+    if not (r["same_choice"] and r["ok"]) or r["good_diff"] > max(2, r["n_good"] // 100) \
+            or r["dR"] > tol_R or r["dt"] > tol_t:
+        raise AssertionError(f"two_view_init: CUDA and CPU disagree: {r}")
+    return ms
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -923,6 +1392,7 @@ def main():
     info = card_info()
     log(info)
     frames, gt = render_orbit()  # forks: before the first CUDA call
+    tum_frames, tum_gt = render_tum()
 
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
 
@@ -946,6 +1416,17 @@ def main():
     max_err = max(max_err, err)
     times.update(loop_times)
 
+    sensor_shapes = set()
+    rgbd_sys, rgbd = drive_tum_rgbd(dev, tum_frames, tum_gt, sensor_shapes)
+    loc = drive_localization(dev, rgbd_sys, tum_frames, tum_gt, rgbd)
+    del rgbd_sys
+    mono = drive_tum_mono(dev, tum_frames, tum_gt, sensor_shapes)
+    check_sensors_small_against_cpu(dev)
+    unit_ms["two_view_init_256x2000"] = check_two_view(dev)
+    err, sensor_times = check_hamming_sensor_shapes(dev, sensor_shapes, loop["shapes"])
+    max_err = max(max_err, err)
+    times.update(sensor_times)
+
     log(f"plain PyTorch loop-closing units on the card (ms): {json.dumps(unit_ms)}")
     log(f"card: {info}")
     common = {"route": "cuda", "source": "orb_slam2_2021_tpu_torch/csrc/hamming.cu",
@@ -956,11 +1437,17 @@ def main():
             "launches_mapping_units": loop["mapping_launches"],
             "launches_loop_closing": loop["loop_launches"],
             "launches_mapping_drive": mapping["launches"],
-            "launches_lane_drive": lane["launches"]}),
+            "launches_lane_drive": lane["launches"],
+            "launches_rgbd_drive": rgbd["launches"],
+            "launches_localization": loc["launches"],
+            "launches_mono_drive": mono["launches"]}),
             ("hamming_matrix", {  # no main-path caller is left: each drive asserts 0
                 "launches": loop["matrix_launches"],
                 "launches_mapping_drive": mapping["matrix_launches"],
-                "launches_lane_drive": lane["matrix_launches"]})):
+                "launches_lane_drive": lane["matrix_launches"],
+                "launches_rgbd_drive": rgbd["matrix_launches"],
+                "launches_localization": loc["matrix_launches"],
+                "launches_mono_drive": mono["matrix_launches"]})):
         head = times["lane"][name]  # the local-point search's shape, 4096 x 2000
         kernels.append({"name": name, **common, **launches,
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -1,14 +1,16 @@
-"""PyTorch/CUDA port of the stereo tracking lane of `orb_slam2_2021_tpu`.
+"""PyTorch/CUDA port of `orb_slam2_2021_tpu`, the SLAM engine beside it.
 
-The JAX package beside this one is the reference: every module here mirrors
-its counterpart there and is held against it by the `tests/test_torch_*.py`
-parity tests on the CPU. Host-side code that imports no JAX (configuration,
-map store, synthetic world, trajectory metrics) is shared by import, not
-copied.
+The JAX package is the reference: every module here mirrors its counterpart
+there and is held against it by the `tests/test_torch_*.py` parity tests on
+the CPU. Nothing of the JAX package is imported: the host-side code (config,
+map store, synthetic worlds, persistence, trajectory metrics) has its own
+copies here; only the packaged vocabulary files are read from the reference
+package's data folder, by path.
 
 The one Pallas kernel of the reference (the packed-descriptor Hamming
 matrix) is a hand-written CUDA kernel here (`csrc/hamming.cu`), built with
-nvcc at first use; everything else is plain PyTorch.
+nvcc at first use; everything else is plain PyTorch. The entry points run on
+the card unless the caller passes device="cpu".
 """
 
 import torch
@@ -20,3 +22,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device without a card
+    raises instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} asked for, but no CUDA card is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev

@@ -1,6 +1,6 @@
 """ORB pyramid feature extraction (counterpart of
-orb_slam2_2021_tpu/frontend/features.py `build_pyramid_stack` /
-`extract_orb_batched`).
+orb_slam2_2021_tpu/frontend/features.py `build_pyramid_stack`,
+`extract_orb_batched` and `extract_orb`).
 
 All eyes x all pyramid levels sit on one zero-padded bf16 canvas
 [B, L, Hc, Wc]; FAST, selection, the 7x7 blur, one 31x31 patch gather, the IC
@@ -135,3 +135,9 @@ def extract_orb_batched(images, cfg):
     xy = torch.stack([xs.to(torch.float32) * s, ys.to(torch.float32) * s], dim=-1)
     kp = Keypoints(xy=xy, response=resp, octave=octave, angle=angle, desc=desc, valid=valid)
     return kp, raw_stack
+
+
+def extract_orb(image, cfg) -> Keypoints:
+    """[H, W] float32 (0..255) -> Keypoints of one image (a batch of 1)."""
+    kp, _ = extract_orb_batched(image[None], cfg)
+    return Keypoints(*(x[0] for x in kp))

@@ -1,9 +1,12 @@
-"""Stereo frame assembly (counterpart of orb_slam2_2021_tpu/frontend/frame.py
-`stereo_match`, `build_stereo_frame`, `build_stereo_frame_from_u8`).
+"""Frame assembly for the three sensors (counterpart of
+orb_slam2_2021_tpu/frontend/frame.py).
 
-Both eyes are extracted as one batch of 2; stereo matching is a row-banded
-masked Hamming argmin, an 11x11 SAD slide with parabola subpixel refinement
-and a median outlier gate, all as dense tensor ops.
+Stereo: both eyes are extracted as one batch of 2; stereo matching is a
+row-banded masked Hamming argmin, an 11x11 SAD slide with parabola subpixel
+refinement and a median outlier gate, all as dense tensor ops. RGB-D: one
+image, depth read from the depth map, a virtual right eye. Monocular: one
+image, no depth. RGB-D and monocular keypoints are undistorted when the
+config carries a lens model.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 
 from ..ops.hamming import hamming_best2
 from ..ops.image import pyramid_shapes
-from .features import Keypoints, extract_orb_batched, gather_patches, level_scales
+from ..ops.undistort import undistort_points
+from .features import Keypoints, extract_orb, extract_orb_batched, gather_patches, level_scales
 
 TH_ORB_STEREO = 75  # (TH_HIGH + TH_LOW) / 2, Frame.cc:576
 
@@ -152,3 +156,36 @@ def build_stereo_frame_from_u8(images_u8, cfg):
     return build_stereo_frame(
         images_u8[0].to(torch.float32), images_u8[1].to(torch.float32), cfg
     )
+
+
+def _undistort_kp(kp: Keypoints, cfg) -> Keypoints:
+    """Keypoint coordinates mapped to the ideal pinhole camera when the
+    config carries lens distortion; unchanged with zero coefficients."""
+    if not any(cfg.dist_coef):
+        return kp
+    return kp._replace(xy=undistort_points(kp.xy, cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.dist_coef))
+
+
+def build_rgbd_frame(image, depth_map, cfg, depth_scale: float = 1.0):
+    """RGB-D pseudo-stereo from an [H, W] float32 image and depth map.
+    Depth is read at the raw (distorted) rounded keypoint coordinates, since
+    the depth image is aligned with the raw image; the virtual right-eye
+    coordinate uses the undistorted x."""
+    kp = extract_orb(image, cfg.orb)
+    h, w = depth_map.shape
+    xs = torch.clamp(torch.round(kp.xy[:, 0]).to(torch.int64), 0, w - 1)
+    ys = torch.clamp(torch.round(kp.xy[:, 1]).to(torch.int64), 0, h - 1)
+    d = depth_map.reshape(-1)[ys * w + xs] * depth_scale
+    kp = _undistort_kp(kp, cfg)
+    ok = (d > 0) & kp.valid
+    neg = torch.full_like(d, -1.0)
+    u_right = torch.where(ok, kp.xy[:, 0] - cfg.bf / torch.clamp_min(d, 1e-6), neg)
+    return Frame(kp=kp, u_right=u_right, depth=torch.where(ok, d, neg), sad_dist=neg)
+
+
+def build_mono_frame(image, cfg):
+    """Monocular frame from an [H, W] float32 image: undistorted keypoints,
+    no right eye and no depth."""
+    kp = _undistort_kp(extract_orb(image, cfg.orb), cfg)
+    neg = torch.full((kp.capacity,), -1.0, dtype=torch.float32, device=image.device)
+    return Frame(kp=kp, u_right=neg, depth=neg, sad_dist=neg)

@@ -1,4 +1,5 @@
-"""SO(3) exp and log maps (counterpart of orb_slam2_2021_tpu/geometry/so3.py)."""
+"""SO(3) exp and log maps and the rotation-to-quaternion map (counterpart of
+orb_slam2_2021_tpu/geometry/so3.py)."""
 
 from __future__ import annotations
 
@@ -71,3 +72,37 @@ def so3_log(R):
     sz = torch.sign(R[..., 0, 2] + R[..., 2, 0]) * sx
     n = nn * torch.stack([sx, sy, sz], dim=-1)
     return torch.where(near_pi[..., None], n * theta[..., None], w)
+
+
+def rot_to_quat(R):
+    """[..., 3, 3] rotation -> [..., 4] quaternion (w, x, y, z), w >= 0, by
+    Shepperd's method: the construction of the largest of four candidates,
+    selected without branches."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp_min(1.0 + tr, 0.0)) * 0.5
+    qx = torch.sqrt(torch.clamp_min(1.0 + m00 - m11 - m22, 0.0)) * 0.5
+    qy = torch.sqrt(torch.clamp_min(1.0 - m00 + m11 - m22, 0.0)) * 0.5
+    qz = torch.sqrt(torch.clamp_min(1.0 - m00 - m11 + m22, 0.0)) * 0.5
+    c0 = torch.stack([qw, (m21 - m12) / (4 * qw + _EPS), (m02 - m20) / (4 * qw + _EPS),
+                      (m10 - m01) / (4 * qw + _EPS)], dim=-1)
+    c1 = torch.stack([(m21 - m12) / (4 * qx + _EPS), qx, (m01 + m10) / (4 * qx + _EPS),
+                      (m02 + m20) / (4 * qx + _EPS)], dim=-1)
+    c2 = torch.stack([(m02 - m20) / (4 * qy + _EPS), (m01 + m10) / (4 * qy + _EPS), qy,
+                      (m12 + m21) / (4 * qy + _EPS)], dim=-1)
+    c3 = torch.stack([(m10 - m01) / (4 * qz + _EPS), (m02 + m20) / (4 * qz + _EPS),
+                      (m12 + m21) / (4 * qz + _EPS), qz], dim=-1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)                               # [..., 4, 4]
+    mags = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22, -m00 - m11 + m22], dim=-1)
+    idx = torch.argmax(mags, dim=-1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    # the squared norm as a chain of fused multiply-adds (each product and
+    # sum rounded once), as the reference's compiled program sums it: the
+    # written quaternions then carry the reference's digits
+    n2 = q[..., 0] * q[..., 0]
+    for i in (1, 2, 3):
+        n2 = (q[..., i].double() * q[..., i].double() + n2.double()).to(q.dtype)
+    q = q / (torch.sqrt(n2)[..., None] + _EPS)
+    return q * torch.sign(q[..., :1] + _EPS)

@@ -1,17 +1,18 @@
-"""Trajectory export in the reference's KITTI format and ATE evaluation: the
-port's own copy of `save_kitti` and `ate_rmse` from
-orb_slam2_2021_tpu/io/trajectory.py (plain numpy, the same behaviour).
+"""Trajectory export in the reference's formats and ATE evaluation: the
+port's own copy of orb_slam2_2021_tpu/io/trajectory.py (the same files).
 
 KITTI: 12 floats per line, row-major 3x4 Twc (System::SaveTrajectoryKITTI).
-The TUM writer needs a rotation-to-quaternion map and is not ported yet
-(ROADMAP.md queue 1, step 10).
+TUM: `t tx ty tz qx qy qz qw` per line (System::SaveTrajectoryTUM).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..geometry.so3 import rot_to_quat
 
 
 def save_kitti(path: str, poses_twc: Sequence[np.ndarray]):
@@ -19,6 +20,18 @@ def save_kitti(path: str, poses_twc: Sequence[np.ndarray]):
         for T in poses_twc:
             row = T[:3, :4].reshape(-1)
             f.write(" ".join(f"{v:.9e}" for v in row) + "\n")
+
+
+def save_tum(path: str, stamped: Sequence[Tuple[float, np.ndarray]]):
+    """(timestamp, Twc [4, 4]) per line; the quaternion is computed in
+    float32, as the reference does."""
+    with open(path, "w") as f:
+        for ts, T in stamped:
+            t = T[:3, 3]
+            R = torch.from_numpy(np.ascontiguousarray(T[:3, :3], np.float32))
+            q = rot_to_quat(R[None])[0].numpy()  # (w, x, y, z)
+            f.write(f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                    f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
 
 
 def ate_rmse(

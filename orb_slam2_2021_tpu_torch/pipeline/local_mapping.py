@@ -12,9 +12,14 @@ Per inserted keyframe (LocalMapping::Run):
   6. with a loop closer attached, the keyframe and its BoW words go to loop
      closing, which runs inline.
 
+With `monocular` set (System does it for monocular input), recent points
+need fewer observations to survive, triangulation pairs are gated by their
+baseline over the neighbour's median scene depth instead of the stereo
+baseline, and local BA pins a second camera when no fixed camera observes
+the window, since a monocular map has a free scale.
+
 Not ported yet (ROADMAP.md): the async worker, its abort and pacing
-(step 11); monocular mapping (step 10); the dense BA path
-`use_cg_local_ba=False`.
+(step 11); the dense BA path `use_cg_local_ba=False`.
 """
 
 from __future__ import annotations
@@ -130,6 +135,7 @@ class LocalMapping:
         self.ba_solve_times: List[tuple] = []  # (seconds, lm_iterations)
         self._devkf: Optional[DeviceKFStore] = None
         self.loop_closer = None  # set by System when loop closing is on
+        self.monocular = False   # set by System for monocular input
 
     def _store(self) -> DeviceKFStore:
         if self._devkf is None:
@@ -204,9 +210,10 @@ class LocalMapping:
 
     # ------------------------------------------------------------------
     def _cull_recent_points(self, k: int):
-        """MapPointCulling (stereo: a stereo observation counts 2 toward
-        nObs, so the threshold is cull_min_obs)."""
-        th_obs = self.cfg.mapping.cull_min_obs
+        """MapPointCulling: a point created two keyframes ago needs more
+        than cull_min_obs observations (stereo, a stereo observation counts
+        2), or more than 2 in a monocular map."""
+        th_obs = 2 if self.monocular else self.cfg.mapping.cull_min_obs
         drop: List[int] = []
         done: List[int] = []
         for m, k0 in self.recent.items():
@@ -230,8 +237,9 @@ class LocalMapping:
     # ------------------------------------------------------------------
     def _snapshot_triangulation(self, k: int):
         """Host snapshot for CreateNewMapPoints: (neighbours, view1, views2)
-        or None. Stereo only: pairs closer than the stereo baseline are
-        dropped on the host before any device work."""
+        or None. Pairs are gated on the host before any device work: closer
+        than the stereo baseline, or monocular, with a baseline under 1% of
+        the neighbour's median scene depth."""
         nn = self.cfg.mapping.triangulation_neighbors
         m = self.map
         if not m.kf_valid[k]:
@@ -239,14 +247,33 @@ class LocalMapping:
         neighbors = [int(x) for x in m.covisible_keyframes(k, nn)]
         if not neighbors:
             return None
-        baseline_min = self.cfg.bf / self.cfg.fx
         c1 = -m.kf_R[k].T @ m.kf_t[k]
-        neighbors = [k2 for k2 in neighbors
-                     if float(np.linalg.norm((-m.kf_R[k2].T @ m.kf_t[k2]) - c1)) >= baseline_min]
+
+        def baseline(k2):
+            return float(np.linalg.norm((-m.kf_R[k2].T @ m.kf_t[k2]) - c1))
+
+        def far_enough(k2):
+            if self.monocular:
+                med = self._median_scene_depth(k2)
+                return med > 0 and baseline(k2) / med >= 0.01
+            return baseline(k2) >= self.cfg.bf / self.cfg.fx
+
+        neighbors = [k2 for k2 in neighbors if far_enough(k2)]
         if not neighbors:
             return None
         return neighbors, self._kf_view(k, unbound_only=True), \
             self._kf_views(neighbors, unbound_only=True)
+
+    def _median_scene_depth(self, k: int) -> float:
+        """KeyFrame::ComputeSceneMedianDepth: the median camera-frame depth
+        of keyframe k's live points, or -1 without any."""
+        mp = self.map.kf_mp[k]
+        ids = mp[mp >= 0]
+        ids = ids[self.map.mp_valid[ids]]
+        if len(ids) == 0:
+            return -1.0
+        z = self.map.mp_pos[ids] @ self.map.kf_R[k][2] + self.map.kf_t[k][2]
+        return float(np.median(z))
 
     def _mapping_device_pass(self, k: int):
         """CreateNewMapPoints + SearchInNeighbors as bounded device units,
@@ -440,6 +467,13 @@ class LocalMapping:
         C_max = ocfg.local_ba_max_cams + ocfg.local_ba_max_fixed
         cams = np.asarray((local + fixed)[:C_max], np.int64)
         cam_free = np.array([(kf in local_set) and kf != 0 for kf in cams.tolist()], bool)
+        if self.monocular and len(fixed) == 0:
+            # with one fixed camera the problem keeps an exact scale null
+            # space (scaling about it changes no residual) and the solve
+            # drifts along it: pin the oldest free camera too
+            frees = np.nonzero(cam_free)[0]
+            if len(frees):
+                cam_free[frees[np.argmin(cams[frees])]] = False
 
         C = min(max(32, 1 << (max(len(cams), 1) - 1).bit_length()), C_max)
         P = min(max(512, 1 << (max(len(mp), 1) - 1).bit_length()), ocfg.local_ba_max_points)

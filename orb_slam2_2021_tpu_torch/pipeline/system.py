@@ -1,30 +1,35 @@
 """System facade (counterpart of orb_slam2_2021_tpu/pipeline/system.py).
 
-Synchronous stereo SLAM at the reference's defaults: the packaged
-vocabulary, mapping and loop closing on. Per frame, one upload of the uint8
-pair, the frame build on the device, tracking against the shared host
-MapStore, then local mapping of any new keyframe (which hands it to loop
-closing) and the occupancy grid, inline; a closed loop makes the grid
-replay. Maps save to and boot from a map file. What is not ported yet raises
-NotImplementedError (see ROADMAP.md): async mode, monocular and RGB-D input,
-localization-only mode, the dense local BA.
+Synchronous SLAM at the reference's defaults: the packaged vocabulary,
+mapping and loop closing on, on the card unless the caller passes
+device="cpu". Three entry points, one per sensor: `track_stereo` (one upload
+of the uint8 pair), `track_rgbd` (image and depth map, the depth divided by
+the config's DepthMapFactor) and `track_monocular` (one image; loops then
+solve for scale). Per frame: the frame build on the device, tracking against
+the shared host MapStore, then local mapping of any new keyframe (which
+hands it to loop closing) and the occupancy grid, inline; a closed loop
+makes the grid replay. Localization mode tracks against the map without
+changing it. Maps save to and boot from a map file; trajectories export in
+the KITTI and TUM formats. What is not ported yet raises
+NotImplementedError (see ROADMAP.md): async mode and the dense local BA.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..config import SlamConfig
 from ..convert import desc_from_numpy
-from ..frontend.frame import build_stereo_frame_from_u8
+from ..frontend.frame import build_mono_frame, build_rgbd_frame, build_stereo_frame_from_u8
 from ..gridmap.grid import GridMapper
 from ..io.metrics import write_ndjson
 from ..io.persistence import load_map, save_map
-from ..io.trajectory import save_kitti
+from ..io.trajectory import save_kitti, save_tum
 from ..mapping.map_store import MapStore
 from ..place.bundle import PlaceRecognition
 from .local_mapping import LocalMapping
@@ -36,16 +41,19 @@ class System:
     def __init__(self, cfg: SlamConfig, enable_mapping: bool = True,
                  enable_loop_closing: bool = True, vocab_path: Optional[str] = None,
                  place_rec: Optional[PlaceRecognition] = None,
-                 sensor: str = "stereo", async_mode: bool = False, device="cpu"):
+                 sensor: str = "stereo", async_mode: bool = False, device="cuda"):
         """Load the vocabulary (the packaged one unless `vocab_path` or
         `place_rec` is given), create the map and keyframe database, and wire
-        Tracking -> LocalMapping -> LoopClosing."""
+        Tracking -> LocalMapping -> LoopClosing for `sensor` ("stereo",
+        "rgbd" or "mono"). Runs on the card unless `device` says otherwise;
+        without a card a CUDA device raises."""
         if async_mode:
             raise NotImplementedError("async mode is not ported yet (ROADMAP.md queue 1, step 11)")
-        if sensor != "stereo":
-            raise NotImplementedError(f"sensor {sensor!r} is not ported yet (ROADMAP.md queue 1, step 10)")
+        if sensor not in ("stereo", "rgbd", "mono"):
+            raise ValueError(f"unknown sensor {sensor!r}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.sensor = sensor
+        self.device = resolve_device(device)
         self.map = MapStore(cfg)
         if place_rec is None:
             if vocab_path is not None:
@@ -54,13 +62,18 @@ class System:
                 place_rec = PlaceRecognition.load_default(self.device)
         self.place = place_rec
         self.local_mapper = LocalMapping(cfg, self.map, self.device) if enable_mapping else None
+        if self.local_mapper is not None:
+            self.local_mapper.monocular = sensor == "mono"
         self.loop_closer = None
         if enable_mapping and enable_loop_closing and self.place is not None:
-            self.loop_closer = LoopClosing(cfg, self.map, self.place.kfdb, self.device)
+            # monocular loops solve for scale drift
+            self.loop_closer = LoopClosing(cfg, self.map, self.place.kfdb, self.device,
+                                           fix_scale=sensor != "mono")
             self.loop_closer.local_mapper = self.local_mapper
             self.local_mapper.loop_closer = self.loop_closer
         self.tracker = Tracking(cfg, self.map, self.device, local_mapper=self.local_mapper,
                                 place_rec=self.place)
+        self.tracker.sensor = sensor
         if self.place is not None:
             # culled keyframes leave the retrieval index
             self.map.on_kf_erased = self.place.kfdb.erase
@@ -70,6 +83,10 @@ class System:
         self.metrics: List[dict] = []  # per-frame records (io/metrics.py schema)
         self._frame_id = 0
         self._reset_requested = False
+        # DepthMapFactor: raw depth maps are divided by it to get metres; a
+        # factor of 0 or 1 means the depth is already metric
+        f = cfg.depth_map_factor
+        self._depth_scale = 1.0 if abs(f) < 1e-5 or f == 1.0 else 1.0 / f
 
     def reset(self):
         """Flag a reset; it runs before the next frame (System::Reset)."""
@@ -124,9 +141,41 @@ class System:
         t0 = time.perf_counter()
         pair = torch.from_numpy(self._pack_stereo_u8(image_left, image_right, normalized))
         frame = build_stereo_frame_from_u8(pair.to(self.device), self.cfg)
+        return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
+
+    def _upload_image(self, image) -> torch.Tensor:
+        """A host image as a float32 [H, W] tensor on the device (uint8
+        travels as uint8 and is cast there)."""
+        img = np.asarray(image)
+        if img.dtype != np.uint8:
+            img = img.astype(np.float32, copy=False)
+        return torch.from_numpy(np.ascontiguousarray(img)).to(self.device).to(torch.float32)
+
+    def track_rgbd(self, image, depth_map, timestamp: float = 0.0):
+        """Per-frame RGB-D entry (System::TrackRGBD): a grey image and a
+        depth map of the same size, in the config's DepthMapFactor units.
+        Returns Tcw as (R, t) numpy arrays, or None while lost."""
+        self._maybe_reset()
+        t0 = time.perf_counter()
+        depth = torch.from_numpy(np.ascontiguousarray(depth_map, np.float32)).to(self.device)
+        frame = build_rgbd_frame(self._upload_image(image), depth, self.cfg, self._depth_scale)
+        return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
+
+    def track_monocular(self, image, timestamp: float = 0.0):
+        """Per-frame monocular entry (System::TrackMonocular). Returns Tcw
+        as (R, t) numpy arrays (up to the map's scale), or None while
+        initializing / lost."""
+        self._maybe_reset()
+        t0 = time.perf_counter()
+        frame = build_mono_frame(self._upload_image(image), self.cfg)
+        return self._track(frame, self.tracker.track_mono_frame, timestamp, t0)
+
+    def _track(self, frame, track_fn, timestamp: float, t0: float):
+        """Track a built frame, run the mapping work it queued, and record
+        the frame's times and metrics."""
         t1 = time.perf_counter()
         with self.map.lock:
-            pose = self.tracker.track_stereo_frame(frame, self._frame_id, timestamp)
+            pose = track_fn(frame, self._frame_id, timestamp)
         t2 = time.perf_counter()
         self._post_track()
         t3 = time.perf_counter()
@@ -156,6 +205,13 @@ class System:
     def save_trajectory_kitti(self, path: str):
         save_kitti(path, self.trajectory_kitti())
 
+    def trajectory_tum(self) -> List[Tuple[float, np.ndarray]]:
+        """Per-frame (timestamp, Twc [4, 4])."""
+        return self.tracker.trajectory()
+
+    def save_trajectory_tum(self, path: str):
+        save_tum(path, self.trajectory_tum())
+
     def timing_stats(self):
         ts = np.asarray(self.frame_times)
         if len(ts) == 0:
@@ -178,7 +234,12 @@ class System:
         return self.grid_mapper.point_cloud()
 
     def activate_localization_mode(self):
-        raise NotImplementedError("localization mode is not ported yet (ROADMAP.md queue 1)")
+        """System::ActivateLocalizationMode: track against the map as it
+        stands; no keyframe or map point is added."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.only_tracking = False
 
     def save_metrics_ndjson(self, path: str) -> int:
         return write_ndjson(path, self.metrics)

@@ -1,11 +1,12 @@
-"""Tracking front-end, stereo SLAM mode (counterpart of
+"""Tracking front-end for stereo, RGB-D and monocular input (counterpart of
 orb_slam2_2021_tpu/pipeline/tracking.py).
 
-State machine (NOT_INITIALIZED / OK / LOST), stereo initialization, the
-fused motion-model + local-map step with reference-keyframe fallback,
-keyframe decision and creation, and per-frame relative-pose records for
-trajectory export. Device work runs in `track_steps`; this class owns the
-numpy-side feature -> map-point bindings and the shared host MapStore.
+State machine (NOT_INITIALIZED / OK / LOST), stereo / RGB-D initialization
+from depth, monocular initialization from two views, the fused motion-model
++ local-map step with reference-keyframe fallback, keyframe decision and
+creation, and per-frame relative-pose records for trajectory export. Device
+work runs in `track_steps`; this class owns the numpy-side feature ->
+map-point bindings and the shared host MapStore.
 
 With a LocalMapping attached, every new keyframe (the stereo initialization
 and each later one) is handed to it together with its BoW words and the live
@@ -17,8 +18,15 @@ database: BoW candidates, descriptor matching (K1), EPnP RANSAC and the
 motion-only refine with its two-stage window escalation; without it (or
 when no candidate succeeds) it falls back to the reference-keyframe search.
 
-Not ported yet (see ROADMAP.md): localization-only mode, monocular and RGB-D
-input.
+Localization mode (`only_tracking`) tracks against the frozen map with the
+motion model, inserts no keyframe, and for stereo and RGB-D carries the pose
+through match-starved stretches on temporal visual-odometry points spawned
+from the last frame's depths (`vo_mode`) until a relocalization succeeds.
+
+Monocular initialization matches a reference frame against a later one,
+bootstraps the two-view geometry (`solvers/two_view.py`) over minimal sets
+drawn by `init_sampler`, and seeds the map with two keyframes at unit
+median depth.
 """
 
 from __future__ import annotations
@@ -37,11 +45,13 @@ from ..frontend.matchers import match_bruteforce_desc
 from ..mapping.map_store import MapStore
 from ..solvers.epnp import MIN_SAMPLE, epnp_ransac
 from ..solvers.horn_sim3 import sample_indices
+from ..solvers.two_view import MIN_SET, two_view_init
 from .track_steps import (
     bow_track_step, frame_pack_step, fused_track_step, local_track_step, motion_track_step,
 )
 
 PNP_HYPS = 256  # EPnP RANSAC hypotheses per relocalization candidate
+INIT_HYPS = 256  # two-view hypotheses of a monocular initialization
 
 
 def reloc_samples(valid, m: int, n_hyps: int, seed: int):
@@ -49,6 +59,13 @@ def reloc_samples(valid, m: int, n_hyps: int, seed: int):
     a host generator seeded per candidate, as the reference seeds its key
     with kc + 17."""
     return sample_indices(valid, m, n_hyps, torch.Generator().manual_seed(seed))
+
+
+def init_samples(valid, frame_id: int):
+    """The monocular initialization's minimal sets [INIT_HYPS, 8], drawn
+    among the valid matches by a host generator seeded with the frame id, as
+    the reference keys its draw."""
+    return sample_indices(valid, MIN_SET, INIT_HYPS, torch.Generator().manual_seed(frame_id))
 
 
 class TrackState(Enum):
@@ -102,6 +119,11 @@ class Tracking:
         self.local_mapper = local_mapper  # None = mapping off
         self.place = place_rec            # PlaceRecognition or None
         self.reloc_sampler = reloc_samples
+        self.init_sampler = init_samples
+        self.sensor = "stereo"            # "stereo" | "rgbd" | "mono", set by System
+        self.only_tracking = False        # localization mode
+        self.vo_mode = False              # tracking mostly on temporal VO points
+        self._mono_ref = None             # (frame, frame_id, timestamp) of mono init
         self.device = torch.device(device)
         self.cam = camera_from_config(cfg)
         self.state = TrackState.NO_IMAGES_YET
@@ -144,21 +166,55 @@ class Tracking:
         n_kf0 = self.map.n_kf
         local_done = False
         self._kf_close_counts = None
-        if self.state == TrackState.OK:
-            if self.velocity is None or frame_id < self.last_reloc_frame_id + 2:
-                ok = self._track_reference_kf(frame)
-            else:
-                fused = self._track_fused(frame, frame_id)
-                if fused is None:
+        if not self.only_tracking:
+            if self.state == TrackState.OK:
+                if self.velocity is None or frame_id < self.last_reloc_frame_id + 2:
                     ok = self._track_reference_kf(frame)
                 else:
-                    ok = fused
-                    local_done = True
+                    fused = self._track_fused(frame, frame_id)
+                    if fused is None:
+                        ok = self._track_reference_kf(frame)
+                    else:
+                        ok = fused
+                        local_done = True
+            else:
+                ok = self._relocalize(frame, frame_id)
         else:
-            ok = self._relocalize(frame, frame_id)
-        if ok and not local_done:
+            ok = self._track_localization(frame, frame_id)
+        if ok and not local_done and not (self.only_tracking and self.vo_mode):
+            # in VO mode too few map matches remain to select a local map
             ok = self._track_local_map(frame, frame_id)
         return self._finish_frame(frame, frame_id, timestamp, ok, n_kf0)
+
+    def _track_localization(self, frame: Frame, frame_id: int) -> bool:
+        """Localization mode: relocalize when lost; track the motion model
+        (or the reference keyframe) while the last frame saw enough map
+        points; in VO mode run both the motion model and relocalization and
+        prefer the relocalization."""
+        if self.state == TrackState.LOST:
+            ok = self._relocalize(frame, frame_id)
+            if ok:
+                self.vo_mode = False
+            return ok
+        if not self.vo_mode:
+            if self.velocity is not None:
+                return self._track_motion_model(frame)
+            return self._track_reference_kf(frame)
+        ok_mm = False
+        mm_pose = mm_bind = None
+        if self.velocity is not None:
+            ok_mm = self._track_motion_model(frame)
+            if ok_mm:
+                mm_pose, mm_bind = self.last_pose, self._bind_cur.copy()
+        ok_reloc = self._relocalize(frame, frame_id)
+        if ok_mm and not ok_reloc:
+            self.last_pose, self._bind_cur = mm_pose, mm_bind
+            if self.vo_mode:
+                # the real map points still tracked were found
+                self.map.increment_found(mm_bind[mm_bind >= 0])
+        elif ok_reloc:
+            self.vo_mode = False
+        return ok_reloc or ok_mm
 
     def _rebase_on_map_correction(self) -> bool:
         """Re-anchor the cached pose state when the reference keyframe moved
@@ -197,14 +253,15 @@ class Tracking:
         if ok:
             self.state = TrackState.OK
             self._update_motion_model()
-            if self._need_new_keyframe(frame, frame_id):
+            if not self.only_tracking and self._need_new_keyframe(frame, frame_id):
                 self._create_new_keyframe(frame, frame_id, timestamp)
         else:
             self.state = TrackState.LOST
             self.velocity = None
             self.n_inliers_last = 0
             # reset if the camera got lost soon after initialization
-            if self.map.n_kf <= 5 and self.request_system_reset is not None:
+            if (not self.only_tracking and self.map.n_kf <= 5
+                    and self.request_system_reset is not None):
                 self.request_system_reset()
                 self._set_metrics(frame_id, timestamp, False)
                 return None
@@ -212,6 +269,89 @@ class Tracking:
         self._stash_last_frame(frame, frame_id)
         self._set_metrics(frame_id, timestamp, self.map.n_kf > n_kf0)
         return self.last_pose if ok else None
+
+    def track_mono_frame(self, frame: Frame, frame_id: int, timestamp: float):
+        """Monocular per-frame entry: the two-view initialization until it
+        succeeds, then the common tracking path."""
+        self.sensor = "mono"
+        if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
+            n_kf0 = self.map.n_kf
+            ok = self._mono_initialize(frame, frame_id, timestamp)
+            self.state = TrackState.OK if ok else TrackState.NOT_INITIALIZED
+            self._set_metrics(frame_id, timestamp, self.map.n_kf > n_kf0)
+            return self.last_pose if ok else None
+        return self.track_stereo_frame(frame, frame_id, timestamp)
+
+    def _mono_initialize(self, frame: Frame, frame_id: int, timestamp: float) -> bool:
+        """MonocularInitialization + CreateInitialMapMonocular: the first
+        frame with more than 100 features becomes the reference; a later one
+        is matched against it (ratio 0.9, distance 50, a 100 px window), the
+        two-view geometry is bootstrapped from the matches, and the map is
+        seeded with the triangulated points at unit median depth and two
+        keyframes (the reference frame at the identity, then this one)."""
+        n_valid = int(frame.kp.valid.sum())
+        if self._mono_ref is None:
+            if n_valid > 100:
+                self._mono_ref = (frame, frame_id, timestamp)
+            return False
+        if n_valid <= 100:
+            self._mono_ref = None
+            return False
+        ref, ref_id, ref_ts = self._mono_ref
+        best_b, accept, _ = match_bruteforce_desc(
+            ref.kp.desc, ref.kp.valid, ref.kp.angle, frame.kp.desc, frame.kp.valid, frame.kp.angle,
+            nn_ratio=0.9, th=50)
+        p2 = frame.kp.xy[best_b.long()]
+        accept = accept & ((p2 - ref.kp.xy).abs().amax(dim=1) < 100.0)
+        accept_h, best_b = to_host(accept, best_b)
+        if accept_h.sum() < 100:
+            self._mono_ref = None
+            return False
+        p1 = torch.where(accept[:, None], ref.kp.xy, torch.zeros_like(ref.kp.xy))
+        idx = self.init_sampler(accept_h, frame_id).to(self.device)
+        c = self.cfg
+        res = two_view_init(idx, p1, p2, accept, c.fx, c.fy, c.cx, c.cy)
+        ok, good, R2, t2, pts = to_host(res.ok, res.good, res.R, res.t, res.points)
+        if not bool(ok) or good.sum() < 80:
+            return False
+        med = float(np.median(pts[good][:, 2]))
+        if med <= 0:
+            return False
+        pts = pts * (1.0 / med)
+        t2 = t2 * (1.0 / med)
+
+        host0 = self._frame_host_arrays(ref)
+        host1 = self._frame_host_arrays(frame)
+        n = frame.n
+        bind0 = np.full(n, -1, np.int64)
+        bind1 = np.full(n, -1, np.int64)
+        gi = np.nonzero(good)[0]
+        ids = self.map.add_map_points_batch(pts[gi].astype(np.float32), host0["desc"][gi], first_kf=0)
+        bind0[gi] = ids
+        bind1[best_b[gi]] = ids
+        k0 = self.map.add_keyframe(
+            np.eye(3, dtype=np.float32), np.zeros(3, np.float32), host0["xy"], host0["ur"],
+            host0["depth"], host0["octave"], host0["angle"], host0["desc"], host0["kp_valid"],
+            bind0, ref_id, ref_ts,
+        )
+        k1 = self.map.add_keyframe(
+            R2.astype(np.float32), t2.astype(np.float32), host1["xy"], host1["ur"], host1["depth"],
+            host1["octave"], host1["angle"], host1["desc"], host1["kp_valid"], bind1,
+            frame_id, timestamp,
+        )
+        self.map.update_point_stats(ids)
+        self.ref_kf = k1
+        self.last_kf_frame_id = frame_id
+        self.last_pose = (R2.astype(np.float32), t2.astype(np.float32))
+        self.velocity = None
+        self._bind_cur = bind1
+        self._record_frame(frame_id, timestamp, lost=False)
+        self._stash_last_frame(frame, frame_id)
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(k0, host0["words"], ref)
+            self.local_mapper.insert_keyframe(k1, host1["words"], frame)
+        self._mono_ref = None
+        return True
 
     def _stereo_initialize(self, frame: Frame, frame_id: int, timestamp: float) -> bool:
         """StereoInitialization: need enough features; one map point per
@@ -249,6 +389,83 @@ class Tracking:
         self._stash_last_frame(frame, frame_id)
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(k, host["words"], frame)
+        return True
+
+    VO_ID = -2  # id of a temporal visual-odometry point
+
+    def _last_landmark_arrays(self):
+        """The landmarks the last frame carries (its bound features). In
+        localization mode with depth (stereo, RGB-D), except on the frame
+        right after a keyframe, the last frame's unbound features with depth
+        become temporal VO points as well: all closer than ThDepth, at least
+        the 100 closest. They carry VO_ID, which map statistics skip, and
+        live for one frame."""
+        lf = self.last_frame_data
+        ids = np.where(lf["mp"] >= 0, lf["mp"], -1)
+        live = self.map.resolve_replaced(ids)
+        valid = (live >= 0) & self.map.mp_valid[np.clip(live, 0, None)] & lf["kp_valid"]
+        xw = self.map.mp_pos[np.clip(live, 0, None)]
+        out_ids = np.where(valid, live, -1)
+        if (self.only_tracking and self.sensor != "mono"
+                and lf.get("frame_id", -1) != self.last_kf_frame_id):
+            depth = lf["depth"]
+            cand = np.nonzero((depth > 0) & lf["kp_valid"] & ~valid)[0]
+            if len(cand):
+                order = cand[np.argsort(depth[cand], kind="stable")]
+                n_close = int((depth[order] < self.cfg.resolved_depth_th()).sum())
+                take = order[: max(min(100, len(order)), n_close)]
+                R_l, t_l = lf["pose"]
+                z = depth[take]
+                xy = lf["xy"]
+                xc = np.stack([(xy[take, 0] - self.cfg.cx) * z / self.cfg.fx,
+                               (xy[take, 1] - self.cfg.cy) * z / self.cfg.fy, z],
+                              axis=1).astype(np.float32)
+                xw = xw.copy()
+                xw[take] = (xc - t_l[None]) @ R_l  # R^T (xc - t)
+                valid = valid.copy()
+                valid[take] = True
+                out_ids = out_ids.copy()
+                out_ids[take] = self.VO_ID
+        return xw, valid, out_ids
+
+    def _run_motion_step(self, frame: Frame, R_pred, t_pred, radius: float):
+        """SearchByProjection against the last frame's landmarks +
+        PoseOptimization. Returns (landmark ids, R, t, slot, inlier, n_in,
+        n_matched) on the host."""
+        xw, valid, ids = self._last_landmark_arrays()
+        lkp = self.last_frame_data.kp
+        out = motion_track_step(
+            self.cam, frame.kp, frame.u_right, self._dev(R_pred), self._dev(t_pred),
+            self._dev(xw), lkp.desc, lkp.octave, lkp.angle, self._dev(valid), radius, self.cfg)
+        R, t, slot, inlier, n_in, n_matched = to_host(*out)
+        return ids, R, t, slot, inlier, int(n_in), int(n_matched)
+
+    def _track_motion_model(self, frame: Frame) -> bool:
+        """TrackWithMotionModel (localization mode's tracker; SLAM mode runs
+        the fused step), with the widened-window retry."""
+        T_pred = self.velocity @ _mat(*self.last_pose)
+        R_pred, t_pred = T_pred[:3, :3], T_pred[:3, 3]
+        r = self.cfg.tracking.motion_search_radius
+        ids, R, t, slot, inlier, n_in, n_matched = self._run_motion_step(frame, R_pred, t_pred, r)
+        if n_matched < 20:
+            ids, R, t, slot, inlier, n_in, n_matched = self._run_motion_step(frame, R_pred, t_pred, 2 * r)
+            if n_matched < 20:
+                return False
+        # inliers on real map points: VO points count toward the pose only
+        slot_ok = (slot >= 0) & inlier
+        n_map = int((slot_ok & (ids[np.clip(slot, 0, None)] >= 0)).sum())
+        if self.only_tracking:
+            if n_in < self.cfg.tracking.min_inliers_track:
+                return False
+            self._apply_matches(ids, slot, inlier)
+            self.last_pose = (R, t)
+            self.vo_mode = n_map < 10
+            self.n_inliers_last = n_in
+            return n_in > 20
+        if n_map < self.cfg.tracking.min_inliers_track:
+            return False
+        self._apply_matches(ids, slot, inlier)
+        self.last_pose = (R, t)
         return True
 
     def _track_reference_kf(self, frame: Frame) -> bool:
@@ -582,7 +799,8 @@ class Tracking:
         self.velocity = (_mat(R_c, t_c) @ np.linalg.inv(_mat(R_l, t_l))).astype(np.float32)
 
     def _need_new_keyframe(self, frame: Frame, frame_id: int) -> bool:
-        """NeedNewKeyFrame, stereo branch, with mapping always idle."""
+        """NeedNewKeyFrame with mapping always idle; monocular input has no
+        close-point trigger and a stricter tracked-ratio gate."""
         if self.ref_kf < 0:
             return False
         n_kf = self.map.n_kf
@@ -604,8 +822,9 @@ class Tracking:
         inl = self.n_inliers_last
         c1a = frames_since >= self.cfg.tracking.max_frames_between_kf
         c1b = frames_since >= self.cfg.tracking.min_frames_between_kf
-        c1c = inl < n_ref * 0.25 or need_close
-        th_ratio = 0.75 if n_kf >= 2 else 0.4
+        mono = self.sensor == "mono"
+        c1c = not mono and (inl < n_ref * 0.25 or need_close)
+        th_ratio = 0.9 if mono else (0.75 if n_kf >= 2 else 0.4)
         c2 = (inl < n_ref * th_ratio or need_close) and inl > 15
         return bool((c1a or c1b or c1c) and c2)
 
@@ -679,7 +898,9 @@ class Tracking:
         self.last_kf_frame_id = -1
         self.records.clear()
         self.n_inliers_last = 0
+        self.vo_mode = False
         self.last_reloc_frame_id = -(1 << 30)
+        self._mono_ref = None
         self._bind_cur = np.full(self.cfg.orb.n_features, -1, np.int64)
         self._fh = None
         self._snap_key = None

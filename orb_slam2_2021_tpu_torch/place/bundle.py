@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .kf_database import KeyFrameDatabase
 from .vocab import BinaryVocabulary, load_orbvoc_text, vocab_transform
 
@@ -26,13 +27,14 @@ PACKAGED_VOCAB_SMALL = os.path.join(_DATA, "vocab_k10_L4.npz")
 
 class PlaceRecognition:
     """The vocabulary, its tree as int32 words (uploaded once per device it
-    is used on) and the keyframe database."""
+    is used on, first to `device`: the card unless the caller passes "cpu")
+    and the keyframe database."""
 
-    def __init__(self, voc: BinaryVocabulary, device="cpu"):
+    def __init__(self, voc: BinaryVocabulary, device="cuda"):
         self.voc = voc
         self.kfdb = KeyFrameDatabase(voc)
         self._trees = {}
-        self.tree(torch.device(device))
+        self.tree(resolve_device(device))
 
     def tree(self, device) -> torch.Tensor:
         """The [n_nodes, 8] int32 tree on `device`."""
@@ -49,7 +51,7 @@ class PlaceRecognition:
         return vocab_transform(self.tree(desc.device), desc, valid, self.voc.k, self.voc.L)
 
     @staticmethod
-    def load_default(device="cpu") -> Optional["PlaceRecognition"]:
+    def load_default(device="cuda") -> Optional["PlaceRecognition"]:
         for path in (PACKAGED_VOCAB_L6, PACKAGED_VOCAB, PACKAGED_VOCAB_SMALL):
             path = os.path.abspath(path)
             if os.path.exists(path):
@@ -57,7 +59,7 @@ class PlaceRecognition:
         return None
 
     @staticmethod
-    def from_file(path: str, device="cpu") -> "PlaceRecognition":
+    def from_file(path: str, device="cuda") -> "PlaceRecognition":
         """`.txt` loads a DBoW2 text vocabulary, anything else the npz
         checkpoint."""
         if path.endswith(".txt"):

@@ -5,6 +5,7 @@ and `_optimize_essential_graph` (graph assembly, solve, write-back) on two
 identically built maps."""
 
 import numpy as np
+import pytest
 import torch
 
 from orb_slam2_2021_tpu.config import synthetic_config
@@ -80,18 +81,21 @@ def _drifted_map(cfg):
     return m, corrected, old_poses, moved_by
 
 
-def _closers(cfg, mj, mt):
+def _closers(cfg, mj, mt, fix_scale=True):
     voc = JVoc(2, 2, np.zeros((7, 8), np.uint32), np.ones(4, np.float32))
     tvoc = TVoc(2, 2, voc.node_desc, voc.word_idf)
-    return JLC(cfg, mj, JDB(voc), fix_scale=True), TLC(cfg, mt, TDB(tvoc), "cpu")
+    return (JLC(cfg, mj, JDB(voc), fix_scale=fix_scale),
+            TLC(cfg, mt, TDB(tvoc), "cpu", fix_scale=fix_scale))
 
 
-def test_essential_graph_solve_matches_reference():
+@pytest.mark.parametrize("fix_scale", [True, False])
+def test_essential_graph_solve_matches_reference(fix_scale):
     """The reference's padded pose graph (32 vertices, 256 edges) through
-    both solvers: s, R within 1e-5, t within 1e-4 m."""
+    both solvers, with the scale fixed (stereo and RGB-D loops) and free
+    (monocular loops): s, R within 1e-5, t within 1e-4 m."""
     cfg = synthetic_config()
     m, corrected, old_poses, moved_by = _drifted_map(cfg)
-    jlc, _ = _closers(cfg, m, m)
+    jlc, _ = _closers(cfg, m, m, fix_scale)
     seen = {}
     solve = jlc._essential
 
@@ -104,12 +108,14 @@ def test_essential_graph_solve_matches_reference():
     jlc._optimize_essential_graph(7, 0, corrected, old_poses, moved_by)
     g = seen["g"]
     assert g.s.shape == (32,) and g.edge_i.shape == (256,) and float(g.weight.sum()) >= 8
-    s, R, t = essential_graph_solve(pose_graph_from_reference(g, "cpu"), fix_scale=True)
+    s, R, t = essential_graph_solve(pose_graph_from_reference(g, "cpu"), fix_scale=fix_scale)
     js, jR, jt = (np.asarray(x) for x in seen["out"])
     assert np.abs(s.numpy() - js).max() < 1e-5, "s: tolerance 1e-5"
     assert np.abs(R.numpy() - jR).max() < 1e-5, "R: tolerance 1e-5"
     assert np.abs(t.numpy() - jt).max() < 1e-4, "t: tolerance 1e-4 m"
     assert np.abs(t.numpy() - g.t).max() > 0.05, "the solve moved the drifted keyframes"
+    # a free scale moves: the drifted keyframes' scales leave 1
+    assert (np.abs(js - 1.0).max() > 1e-3) != fix_scale
 
 
 def test_optimize_essential_graph_on_identical_maps():

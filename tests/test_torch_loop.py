@@ -224,7 +224,7 @@ def _port_loop_closer(m, cfg):
     from orb_slam2_2021_tpu_torch.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
     from orb_slam2_2021_tpu_torch.place.vocab import BinaryVocabulary
 
-    pr = PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL))
+    pr = PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL), device="cpu")
     cfg = config_from_reference(cfg)
     lc = LoopClosing(cfg, m, pr.kfdb, "cpu")
     lc.local_mapper = LocalMapping(cfg, m, "cpu")

@@ -118,7 +118,7 @@ def test_keyframe_database_matches_reference():
 
 def test_load_default_picks_the_reference_file():
     ref = jbundle.PlaceRecognition.load_default()
-    got = tbundle.PlaceRecognition.load_default()
+    got = tbundle.PlaceRecognition.load_default(device="cpu")
     assert (got.voc.k, got.voc.L) == (ref.voc.k, ref.voc.L) == (10, 6)
     assert np.array_equal(got.voc.node_desc, ref.voc.node_desc)
     assert np.array_equal(got.voc.word_idf, ref.voc.word_idf)
@@ -138,5 +138,5 @@ def test_text_vocabulary_loads_like_reference(tmp_path):
     assert np.array_equal(got.node_desc, ref.node_desc)
     assert np.array_equal(got.word_idf, ref.word_idf)
     assert np.array_equal(got.node_desc, voc.node_desc)
-    pr = tbundle.PlaceRecognition.from_file(path)
+    pr = tbundle.PlaceRecognition.from_file(path, device="cpu")
     assert pr.voc.n_words == 10 ** 4 and pr.voc.n_nodes() == ref.n_nodes()

@@ -172,32 +172,75 @@ def test_reset_with_mapping_matches_reference():
 def test_unported_modes_raise():
     """The reference's defaults construct (place recognition from the
     packaged vocabulary, loop closing on), as does a given PlaceRecognition;
-    async mode, other sensors and the dense local BA still raise."""
+    the RGB-D and monocular Systems and localization mode construct and
+    run; async mode and the dense local BA still raise."""
     from orb_slam2_2021_tpu_torch.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
     from orb_slam2_2021_tpu_torch.place.vocab import BinaryVocabulary
 
     cfg = synthetic_config(width=320, height=240)
     for kwargs in ({"async_mode": True}, {"enable_mapping": False, "async_mode": True},
-                   {"enable_mapping": False, "sensor": "mono"}, {"sensor": "rgbd"},
+                   {"enable_mapping": False, "sensor": "mono", "async_mode": True},
                    {"enable_loop_closing": False, "async_mode": True},
                    {"cfg": cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False))}):
         kwargs = dict(kwargs)
         with pytest.raises(NotImplementedError) as err:
-            TSystem(kwargs.pop("cfg", cfg), **kwargs)
+            TSystem(kwargs.pop("cfg", cfg), device="cpu", **kwargs)
         assert "ROADMAP.md" in str(err.value)
-    sys_ = TSystem(cfg)
+    with pytest.raises(ValueError):
+        TSystem(cfg, sensor="lidar", device="cpu")
+    sys_ = TSystem(cfg, device="cpu")
     assert sys_.loop_closer is not None and sys_.local_mapper.loop_closer is sys_.loop_closer
+    assert sys_.loop_closer.fix_scale and not sys_.local_mapper.monocular
     assert (sys_.place.voc.k, sys_.place.voc.L) == (10, 6)
     assert sys_.map.on_kf_erased == sys_.place.kfdb.erase
-    with pytest.raises(NotImplementedError):
-        sys_.activate_localization_mode()
-    pr = PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL))
-    sys_ = TSystem(cfg, enable_mapping=False, place_rec=pr)
+    pr = PlaceRecognition(BinaryVocabulary.load(PACKAGED_VOCAB_SMALL), device="cpu")
+    world = SyntheticStereoWorld(cfg, seed=3)
+    gt = forward_trajectory(2, step=0.12)
+    mono = TSystem(cfg, sensor="mono", place_rec=pr, device="cpu")
+    assert not mono.loop_closer.fix_scale and mono.local_mapper.monocular
+    assert mono.tracker.sensor == "mono"
+    assert mono.track_monocular(world.render(*gt[0])[0], timestamp=0.0) is None
+    assert mono.tracker.state.name == "NOT_INITIALIZED" and mono.tracker._mono_ref is not None
+    rgbd = TSystem(cfg, sensor="rgbd", enable_mapping=False, place_rec=pr, device="cpu")
+    img, depth = world.render_rgbd(*gt[0])
+    assert rgbd.track_rgbd(img, depth, timestamp=0.0) is not None and rgbd.map.n_kf == 1
+    rgbd.activate_localization_mode()
+    n_mp = int(rgbd.map.next_mp)
+    img, depth = world.render_rgbd(*gt[1])
+    assert rgbd.track_rgbd(img, depth, timestamp=0.1) is not None
+    assert rgbd.map.n_kf == 1 and int(rgbd.map.next_mp) == n_mp
+    rgbd.deactivate_localization_mode()
+    assert not rgbd.tracker.only_tracking
+    sys_ = TSystem(cfg, enable_mapping=False, place_rec=pr, device="cpu")
     assert sys_.place is pr and sys_.tracker.place is pr and sys_.loop_closer is None
-    sys_ = TSystem(cfg, enable_loop_closing=False, place_rec=pr)
+    sys_ = TSystem(cfg, enable_loop_closing=False, place_rec=pr, device="cpu")
     assert sys_.local_mapper is not None and sys_.grid_mapper is not None
     assert sys_.loop_closer is None and sys_.local_mapper.loop_closer is None
     assert sys_.occupancy_grid().data.shape == (cfg.gridmap.size_z, cfg.gridmap.size_x)
+
+
+def test_entry_points_default_to_the_card():
+    """System, System.from_map_file (through its keyword arguments) and the
+    PlaceRecognition constructors run on the card unless told otherwise;
+    without one they raise instead of falling back to the CPU."""
+    import inspect
+
+    from orb_slam2_2021_tpu_torch.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
+    from orb_slam2_2021_tpu_torch.place.vocab import BinaryVocabulary
+
+    for fn in (TSystem.__init__, PlaceRecognition.__init__, PlaceRecognition.load_default,
+               PlaceRecognition.from_file):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if torch.cuda.is_available():
+        return
+    cfg = synthetic_config(width=320, height=240)
+    voc = BinaryVocabulary.load(PACKAGED_VOCAB_SMALL)
+    for make in (lambda: TSystem(cfg), lambda: TSystem(cfg, enable_mapping=False),
+                 lambda: TSystem.from_map_file(cfg, "no_such_map.npz"),
+                 lambda: PlaceRecognition.load_default(), lambda: PlaceRecognition(voc),
+                 lambda: PlaceRecognition.from_file(PACKAGED_VOCAB_SMALL)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_port_runs_without_jax():
@@ -228,7 +271,7 @@ def test_port_runs_without_jax():
         assert (s.occupancy_grid().data == 100).sum() > 0
         # the reference's defaults: packaged vocabulary, loop closing on
         from orb_slam2_2021_tpu_torch.place.bundle import PlaceRecognition
-        assert PlaceRecognition.load_default().voc.L == 6
+        assert PlaceRecognition.load_default(device="cpu").voc.L == 6
         s = System(cfg, device="cpu")
         poses = [s.track_stereo(*world.render(R, t), timestamp=0.1 * i)
                  for i, (R, t) in enumerate(forward_trajectory(3, step=0.12))]
