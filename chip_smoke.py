@@ -23,7 +23,7 @@ Phases (any failure exits nonzero before the result lines are printed):
   7. check the System with local mapping and the occupancy grid on, CUDA
      against the CPU path, on a 320x240 sequence;
   8. drive System(kitti_stereo_config(), enable_mapping=True,
-     enable_loop_closing=False) over the first 40 frames of the bench's
+     enable_loop_closing=False) over the first 24 frames of the bench's
      cylinder-world orbit at KITTI width, counting hamming_best2's launches
      from the mapping units apart from the lane's, and check tracking,
      keyframes, local BA solves, triangulated points, the grid and ATE;
@@ -56,7 +56,23 @@ Phases (any failure exits nonzero before the result lines are printed):
      ATE against the reference's; then the RGB-D, monocular and
      localization Systems CUDA against the CPU path at 320x240,
      two_view_init on the card against the CPU, and the Hamming checks at
-     the largest new shape these drives gave the fused launcher.
+     the largest new shape these drives gave the fused launcher;
+ 15. drive System(kitti_stereo_config(), async_mode=True) through
+     bench_torch.drive (prefetch, the tracking lane, the mapping worker and
+     the global-BA thread on their own CUDA streams) over the orbit of phase
+     11: every frame tracked, ATE, map invariants, both threads joined and
+     none raised; report the loop and the global BA, hamming_best2's
+     launches per thread, the lane's median and p90 and its waits for the
+     map lock beside phase 11's synchronous median on the same frames, and
+     fps;
+ 16. drive the RGB-D System at close range with uint16 depth (points
+     crossing ThDepth): tracking, ATE and the close-point keyframe trigger
+     against the JAX reference's numbers; then localization mode;
+ 17. drive the RGB-D System in async mode over the first close-range frames
+     and the monocular one over the first TUM frames: tracked, mapped,
+     invariants clean, threads joined;
+ 18. trace a stretch of a fresh async drive of the orbit with torch.profiler:
+     the device busy share and the kernels per stream.
 
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -82,7 +98,7 @@ SHAPES = [(2000, 2000), (4096, 2000), (1, 1), (127, 129), (200, 150), (257, 64),
 # features against 10 neighbours, forward fusion 2000 points against 8
 MAPPING_SHAPES = [(2000, 2000, 10), (2000, 2000, 8)]  # (N, M, T)
 N_ORBIT = 144        # the bench's 630-degree orbit (bench.py)
-N_MAP_FRAMES = 40    # its first frames, for the mapping-on drive
+N_MAP_FRAMES = 24    # its first frames, for the mapping-on drive (4 keyframes by frame 14)
 # the JAX reference's synchronous drive of the same orbit closes one loop at
 # frame 84, keyframe 9 against keyframe 0 (485 matched map points)
 REF_LOOP_FRAME, REF_LOOP_PAIR = 84, (9, 0)
@@ -106,6 +122,24 @@ REF_RGBD = {"tracked": 60, "keyframes": 10, "ate": 0.0581, "loc_tracked": 20, "l
 REF_MONO = {"init": 5, "tracked": 55, "keyframes": 45, "ate_sim3": 0.2857}
 SMALL_LENS = (0.25, -0.15, -0.002, 0.001, 0.0)  # the synthetic lens of tests/test_undistort.py
 SMALL_SENSOR_POSE_TOL = 1e-3
+# RGB-D at close range (phase 16): the freiburg1 configuration over
+# SyntheticStereoWorld(seed 4, z_min 1 m, z_max 6 m) through its lens on
+# forward_trajectory(60, step 0.05), the depth passed as uint16 (metres x
+# 5000: 6 m is 30000), points crossing ThDepth (3.1 m) as the camera closes
+# in; localization then re-tracks frames 59 down to 50. The JAX reference on
+# the CPU (scripts/ref_rgbd_close_range.py jax): 60/60 tracked, keyframes at
+# frames 0, 14, 16, 20, 25, 31, 37, 43, 49, 55, the close-point trigger held
+# at frame 14, ATE 0.0064 m over 2.983 m; localization 10/10, no VO frame
+CLOSE_FRAMES, CLOSE_STEP, CLOSE_Z, CLOSE_LOC_FROM = 60, 0.05, (1.0, 6.0), 50
+REF_CLOSE = {"tracked": 60, "kf_frames": [0, 14, 16, 20, 25, 31, 37, 43, 49, 55],
+             "close_frames": [14], "ate": 0.0064, "loc_tracked": 10, "vo_frames": 0}
+# phase 17: the other sensors in async mode, RGB-D over the first close-range
+# frames (keyframes at 0, 14 and 16), monocular over the first TUM frames
+ASYNC_SENSOR_FRAMES = 20
+# phase 18: a fresh async System over the orbit's first frames, the last of
+# them traced by torch.profiler for the busy share; last in the run because
+# the trace slows whatever runs after it in the process
+ASYNC_PROFILE_FRAMES = (12, 18)
 
 
 def log(msg):
@@ -431,33 +465,18 @@ def _ate_alignment(est, gt):
     return lambda x: R @ (np.asarray(x, np.float64) - mu_e) + mu_g
 
 
-_WORLD = None
-
-
-def _render_pair(pose):
-    R, t = pose
-    return np.clip(np.stack(_WORLD.render(R, t)), 0, 255).astype(np.uint8)
-
-
-def render_orbit(n_frames=N_ORBIT, workers=4):
-    """The bench's world and path at KITTI width: SyntheticCylinderWorld(seed
-    7) on orbit_trajectory(144, 630 degrees, r 1.5 m), as uint8 pairs,
-    rendered by `workers` forked processes. Call it before anything touches
-    the card: the children inherit the world, never a CUDA context."""
-    import multiprocessing
-
+def render_orbit():
+    """The bench's world and path at KITTI width, as bench_torch.py renders
+    them: SyntheticCylinderWorld(seed 7) on orbit_trajectory(144, 630
+    degrees, r 1.5 m), uint8 pairs, rendered by forked processes. Call it
+    before anything touches the card: the children inherit the world, never
+    a CUDA context."""
+    import bench_torch
     from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
-    from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticCylinderWorld, orbit_trajectory
 
-    global _WORLD
-    _WORLD = SyntheticCylinderWorld(kitti_stereo_config(), seed=7)
-    gt = orbit_trajectory(N_ORBIT, total_deg=630.0, r_orbit=1.5)[:n_frames]
     t0 = time.perf_counter()
-    with multiprocessing.get_context("fork").Pool(workers) as pool:
-        frames = pool.map(_render_pair, gt, chunksize=4)
-    _WORLD = None
-    log(f"rendered {len(frames)} cylinder-world frames in {time.perf_counter() - t0:.1f} s "
-        f"({workers} processes)")
+    frames, gt = bench_torch.orbit_frames(kitti_stereo_config(), N_ORBIT)
+    log(f"rendered {len(frames)} cylinder-world frames in {time.perf_counter() - t0:.1f} s")
     return frames, gt
 
 
@@ -484,7 +503,8 @@ def drive_kitti_mapping(dev, frames, gt):
         counts["keyframes"] += q
 
     lm.process_pending = counted_process
-    HAMMING_BEST2_KERNEL.launches = HAMMING_KERNEL.launches = 0
+    HAMMING_BEST2_KERNEL.reset_counts()
+    HAMMING_KERNEL.reset_counts()
     tracked = 0
     for i, pair in enumerate(frames):
         if sys_.track_stereo(pair[0], pair[1], timestamp=0.1 * i) is not None:
@@ -795,7 +815,8 @@ def drive_kitti_default(dev, frames, gt):
 
     sys_.grid_mapper.process_new = grid_hook
 
-    HAMMING_BEST2_KERNEL.launches = HAMMING_KERNEL.launches = 0
+    HAMMING_BEST2_KERNEL.reset_counts()
+    HAMMING_KERNEL.reset_counts()
     tracked = 0
     for i, pair in enumerate(frames):
         if sys_.track_stereo(pair[0], pair[1], timestamp=0.1 * i) is not None:
@@ -868,7 +889,7 @@ def drive_kitti_default(dev, frames, gt):
         raise AssertionError(f"relocalized {err:.3f} m away from the ground truth")
     return {"launches": launches, "mapping_launches": mapping_units,
             "loop_launches": counts["loop_closing"], "shapes": sorted(shapes),
-            "matrix_launches": matrix_launches}
+            "matrix_launches": matrix_launches, "ms": ms}
 
 
 def check_hamming_loop_shapes(dev, shapes):
@@ -922,7 +943,8 @@ def drive_kitti(dev):
     if frame.kp.capacity != cfg.orb.n_features:
         raise AssertionError("frame capacity differs from n_features")
 
-    HAMMING_BEST2_KERNEL.launches = HAMMING_KERNEL.launches = 0
+    HAMMING_BEST2_KERNEL.reset_counts()
+    HAMMING_KERNEL.reset_counts()
     tracked = 0
     for i, pair in enumerate(frames):
         if sys_.track_stereo(pair[0], pair[1], timestamp=0.1 * i) is not None:
@@ -970,7 +992,7 @@ def _render_rgbd(pose):
     return img, (depth * _TUM_WORLD.cfg.depth_map_factor).astype(np.float32)
 
 
-def render_tum(workers=4):
+def render_tum(workers=8):
     """TUM_FRAMES + 4 RGB-D frames of SyntheticStereoWorld(seed TUM_SEED) at
     the freiburg1 configuration, through its lens, on
     forward_trajectory(step TUM_STEP); forked like render_orbit, before
@@ -1026,7 +1048,8 @@ def _launch_counts():
 def _zero_launch_counts():
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
 
-    HAMMING_BEST2_KERNEL.launches = HAMMING_KERNEL.launches = 0
+    HAMMING_BEST2_KERNEL.reset_counts()
+    HAMMING_KERNEL.reset_counts()
 
 
 def _check_drive_launches(name, best2, matrix):
@@ -1381,6 +1404,303 @@ def check_two_view(dev):
         raise AssertionError(f"two_view_init: CUDA and CPU disagree: {r}")
     return ms
 
+def close_range_world(cfg, synthetic):
+    """The close-range RGB-D world and path, from either package's
+    synthetic module (the reference script renders the same frames)."""
+    world = synthetic.SyntheticStereoWorld(cfg, seed=TUM_SEED, z_min=CLOSE_Z[0], z_max=CLOSE_Z[1])
+    return world, synthetic.forward_trajectory(CLOSE_FRAMES, step=CLOSE_STEP)
+
+
+def close_range_frame(world, pose):
+    """(uint8 image, uint16 depth in DepthMapFactor units) at a pose."""
+    img, depth = world.render_rgbd(*pose, dist_coef=world.cfg.dist_coef)
+    raw = np.round(depth * world.cfg.depth_map_factor)
+    if raw.max() >= 65535:
+        raise ValueError(f"depth {depth.max():.2f} m overflows uint16")
+    return np.clip(img, 0, 255).astype(np.uint8), raw.astype(np.uint16)
+
+
+def count_close_triggers(tracker, fired):
+    """Wrap the tracker's keyframe decision: append the frame id whenever
+    the close-point trigger (fewer than 100 tracked and more than 70
+    untracked points closer than ThDepth) holds there."""
+    decide = tracker._need_new_keyframe
+
+    def gate(frame, frame_id):
+        verdict = decide(frame, frame_id)
+        if tracker._kf_close_counts is not None:
+            tracked_close, untracked_close = tracker._kf_close_counts
+        else:
+            depth = np.asarray(tracker._frame_host_arrays(frame)["depth"])
+            close = (depth > 0) & (depth < tracker.cfg.resolved_depth_th())
+            tracked_close = int((close & (tracker._bind_cur >= 0)).sum())
+            untracked_close = int((close & (tracker._bind_cur < 0)).sum())
+        if tracked_close < 100 and untracked_close > 70:
+            fired.append(int(frame_id))
+        return verdict
+
+    tracker._need_new_keyframe = gate
+
+
+_CLOSE_WORLD = None
+
+
+def _render_close(pose):
+    return close_range_frame(_CLOSE_WORLD, pose)
+
+
+def render_close(workers=8):
+    """The close-range RGB-D frames, forked like render_orbit."""
+    import multiprocessing
+
+    from orb_slam2_2021_tpu_torch import config
+    from orb_slam2_2021_tpu_torch.io import synthetic
+
+    global _CLOSE_WORLD
+    _CLOSE_WORLD, gt = close_range_world(config.tum_rgbd_config("freiburg1"), synthetic)
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("fork").Pool(workers) as pool:
+        frames = pool.map(_render_close, gt, chunksize=4)
+    _CLOSE_WORLD = None
+    log(f"rendered {len(frames)} close-range RGB-D frames (uint16 depth) in "
+        f"{time.perf_counter() - t0:.1f} s ({workers} processes)")
+    return frames, gt
+
+
+def drive_tum_close(dev, frames, gt):
+    """Phase 16: System(tum_rgbd_config("freiburg1"), sensor="rgbd") over
+    the close-range frames with uint16 depth; the close-point trigger must
+    hold at least once; then localization mode over the last frames."""
+    from orb_slam2_2021_tpu_torch.config import tum_rgbd_config
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    cfg = tum_rgbd_config("freiburg1")
+    sys_ = System(cfg, sensor="rgbd", device=dev)
+    fired = []
+    count_close_triggers(sys_.tracker, fired)
+    _zero_launch_counts()
+    tracked = sum(sys_.track_rgbd(img, depth, timestamp=0.1 * i) is not None
+                  for i, (img, depth) in enumerate(frames))
+    best2, matrix = _launch_counts()
+    kf_frames = [r["frame_id"] for r in sys_.metrics if r["keyframe"]]
+    ate, length = _ate(sys_.trajectory_kitti(), gt)
+    ms = 1e3 * np.asarray(sys_.frame_times)
+    sys_.activate_localization_mode()
+    kf0, mp0 = int(sys_.map.next_kf), int(sys_.map.next_mp)
+    loc_tracked, vo = 0, 0
+    for j, i in enumerate(range(CLOSE_FRAMES - 1, CLOSE_LOC_FROM - 1, -1)):
+        loc_tracked += sys_.track_rgbd(*frames[i], timestamp=10.0 + 0.1 * j) is not None
+        vo += bool(sys_.tracker.vo_mode)
+    grew = int(sys_.map.next_kf) != kf0 or int(sys_.map.next_mp) != mp0
+    sys_.shutdown()
+    n_loc = CLOSE_FRAMES - CLOSE_LOC_FROM
+    log(f"phase 16, close-range RGB-D drive {cfg.width}x{cfg.height}, depth uint16 up to "
+        f"{max(int(d.max()) for _, d in frames)} (z {CLOSE_Z[0]}-{CLOSE_Z[1]} m): {tracked}/{CLOSE_FRAMES} "
+        f"tracked, keyframes at frames {kf_frames}, close-point trigger held at frames {sorted(set(fired))}, "
+        f"ATE {ate:.4f} m over {length:.3f} m; localization {loc_tracked}/{n_loc} re-tracked, VO mode on "
+        f"{vo} frames, map grew: {grew} (JAX reference on the CPU: {REF_CLOSE['tracked']}/60, keyframes at "
+        f"{REF_CLOSE['kf_frames']}, trigger at {REF_CLOSE['close_frames']}, ATE {REF_CLOSE['ate']} m; "
+        f"localization {REF_CLOSE['loc_tracked']}/10, {REF_CLOSE['vo_frames']} VO frames)")
+    log(f"phase 16 per-frame ms (host clock): median {np.median(ms):.2f}, max {ms.max():.2f}")
+    _check_drive_launches("close-range RGB-D drive", best2, matrix)
+    if tracked < CLOSE_FRAMES - 2:
+        raise AssertionError(f"close-range RGB-D: tracked {tracked}/{CLOSE_FRAMES} frames")
+    if not fired:
+        raise AssertionError("close-range RGB-D: the close-point keyframe trigger never held")
+    if not (np.isfinite(ate) and ate < 0.05 * length):
+        raise AssertionError(f"close-range RGB-D: ATE {ate:.4f} m is not below 5% of {length:.3f} m")
+    if loc_tracked < n_loc - 2 or grew:
+        raise AssertionError(f"close-range localization: {loc_tracked}/{n_loc} tracked, map grew: {grew}")
+    return {"launches": best2, "matrix_launches": matrix}
+
+
+def _check_threads(sys_, what):
+    """After shutdown (which raises what a thread died of): both threads
+    joined and neither kept an error."""
+    lc = sys_.loop_closer
+    alive = sys_._worker.is_alive() or (lc is not None and lc.gba_thread is not None
+                                        and lc.gba_thread.is_alive())
+    errors = [x.error for x in (sys_.local_mapper, lc) if x is not None and x.error is not None]
+    if alive or errors:
+        raise AssertionError(f"{what}: a thread still runs or died: alive {alive}, errors {errors}")
+
+
+def _busy_share(prof):
+    """Device busy share of a profiled stretch: the union of the kernels'
+    intervals over the span from the first kernel's start to the last one's
+    end, with the kernel count per stream id."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.load(open(path))["traceEvents"]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["args"].get("stream"))
+                     for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        return float("nan"), {}
+    busy, end = 0.0, -np.inf
+    for a, b, _ in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(b for _, b, _ in kernels) - kernels[0][0]
+    per_stream = {}
+    for _, _, st in kernels:
+        per_stream[str(st)] = per_stream.get(str(st), 0) + 1
+    return busy / span, per_stream
+
+
+def drive_async_bench(dev, frames, gt, sync_ms):
+    """Phase 15: bench_torch.py's drive (System(kitti_stereo_config(),
+    async_mode=True), prefetch, the orbit's frames): every frame tracked,
+    ATE, invariants, threads joined; reports the loop, global BA, launches
+    per thread, the lane's median and p90 (and its waits for the map lock)
+    beside phase 11's synchronous median on the same frames, and fps."""
+    import bench_torch
+
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    cfg = kitti_stereo_config()
+    sys_ = System(cfg, async_mode=True, device=dev)
+    lc = sys_.loop_closer
+    loops = []
+    correct = lc._correct_loop
+
+    def correct_hook(k, loop_kf, *a):
+        loops.append((len(sys_.frame_times), k, loop_kf))
+        return correct(k, loop_kf, *a)
+
+    lc._correct_loop = correct_hook
+    idle = []  # was the worker idle as each frame began?
+    _zero_launch_counts()
+    fps = bench_torch.drive(sys_, frames, bench_torch.WARMUP_FRAMES,
+                            hook=lambda i: idle.append(sys_.local_mapper.idle()))
+    sys_.shutdown()
+    _check_threads(sys_, "async bench drive")
+    best2, matrix = _launch_counts()
+    by_thread = dict(HAMMING_BEST2_KERNEL.launches_by_thread)
+    states = [r["state"] for r in sys_.metrics]
+    ate, length = _ate(sys_.trajectory_kitti(), gt)
+    bad = sys_.map.check_invariants()
+    w = bench_torch.WARMUP_FRAMES
+    ms = 1e3 * np.asarray(sys_.frame_times)
+    sync = np.asarray(sync_ms)[w:]
+    lock = 1e3 * np.asarray(sys_.lock_waits)[w:]
+    idle = np.asarray(idle[w:], bool)
+    log(f"phase 15, async prefetch drive (bench_torch.drive) {cfg.width}x{cfg.height}: "
+        f"{states.count('OK')}/{len(frames)} tracked, {sys_.map.n_kf} live keyframes "
+        f"({sys_.map.next_kf} created), {int(sys_.map.mp_valid.sum())} live map points, "
+        f"{lc.n_loops} loop(s), ATE {ate:.4f} m over {length:.3f} m, {len(bad)} invariant violations")
+    for frame, k, loop_kf in loops:
+        log(f"phase 15 loop at frame {frame}: keyframe {k} against keyframe {loop_kf} (synchronous "
+            f"phase 11 and the JAX reference: frame {REF_LOOP_FRAME}, keyframe {REF_LOOP_PAIR[0]} "
+            f"against {REF_LOOP_PAIR[1]}; async timing may move or miss it)")
+    log(f"phase 15 global BA runs on their thread: {lc.gba_runs}")
+    log(f"phase 15 lane ms per frame over frames {w}..{len(frames) - 1} (host clock): median "
+        f"{np.median(ms[w:]):.2f}, p90 {np.percentile(ms[w:], 90):.2f}, max {ms[w:].max():.2f}; "
+        f"synchronous phase 11 on the same frames: median {np.median(sync):.2f}, p90 "
+        f"{np.percentile(sync, 90):.2f}; {fps:.3f} frames/s over the timed frames; the lane's wait "
+        f"for the map lock: median {np.median(lock):.2f}, p90 {np.percentile(lock, 90):.2f}, "
+        f"{lock.sum() / ms[w:].sum():.3f} of the lane's time")
+    for name, sel in (("idle", idle), ("busy", ~idle)):
+        if sel.any():
+            log(f"phase 15 frames begun with the mapping worker {name}: {int(sel.sum())}, lane median "
+                f"{np.median(ms[w:][sel]):.2f} ms (sync on the same frames {np.median(sync[sel]):.2f}), "
+                f"map-lock wait median {np.median(lock[sel]):.2f} ms")
+    log(f"phase 15 hamming_best2 launches per thread: {by_thread} ({best2} in all); "
+        f"hamming_matrix launches {matrix}")
+    _check_drive_launches("async bench drive", best2, matrix)
+    if states.count("OK") != len(frames):
+        raise AssertionError(f"async bench drive: {len(frames) - states.count('OK')} frames not tracked")
+    if not (np.isfinite(ate) and ate < 0.05 * length):
+        raise AssertionError(f"async bench drive: ATE {ate:.4f} m is not below 5% of {length:.3f} m")
+    if bad:
+        raise AssertionError("async bench drive: map invariants broken:\n" + "\n".join(bad[:20]))
+    if by_thread.get("mapping", 0) <= 0 or by_thread.get("MainThread", 0) <= 0:
+        raise AssertionError(f"async bench drive: launches per thread {by_thread}")
+    return {"launches_by_thread": by_thread, "matrix_launches": matrix, "fps": fps,
+            "median_ms": float(np.median(ms[w:]))}
+
+
+def drive_async_sensors(dev, close_frames, tum_frames):
+    """Phase 17: the RGB-D System in async mode over the first
+    ASYNC_SENSOR_FRAMES close-range frames and the monocular one over the
+    first TUM frames: tracked, keyframes mapped by the worker, invariants
+    clean, threads joined."""
+    from orb_slam2_2021_tpu_torch.config import tum_rgbd_config
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    cfg = tum_rgbd_config("freiburg1")
+    n = ASYNC_SENSOR_FRAMES
+    out = {}
+    for sensor in ("rgbd", "mono"):
+        sys_ = System(cfg, sensor=sensor, async_mode=True, device=dev)
+        _zero_launch_counts()
+        tracked, init = 0, None
+        for i in range(n):
+            pose = (sys_.track_rgbd(*close_frames[i], timestamp=0.1 * i) if sensor == "rgbd"
+                    else sys_.track_monocular(tum_frames[i][0], timestamp=0.1 * i))
+            if pose is not None:
+                tracked += 1
+                init = i if init is None else init
+        sys_.shutdown()
+        _check_threads(sys_, f"async {sensor} drive")
+        best2, matrix = _launch_counts()
+        bad = sys_.map.check_invariants()
+        ms = 1e3 * np.asarray(sys_.frame_times)
+        log(f"phase 17, async {sensor} drive: {tracked}/{n} tracked (first at frame {init}), "
+            f"{sys_.map.next_kf} keyframes created, {len(bad)} invariant violations, median "
+            f"{np.median(ms):.2f} ms; hamming_best2 launches per thread "
+            f"{dict(_best2_by_thread())}")
+        _check_drive_launches(f"async {sensor} drive", best2, matrix)
+        first_ok = 0 if sensor == "rgbd" else REF_MONO["init"] + 3
+        if init is None or init > first_ok or tracked < n - init - 2 or sys_.map.next_kf < 3 or bad:
+            raise AssertionError(f"async {sensor} drive: tracked {tracked}/{n} from frame {init}, "
+                                 f"{sys_.map.next_kf} keyframes, invariants {bad[:5]}")
+        out[sensor] = {"launches": best2, "matrix_launches": matrix}
+    return out
+
+
+def profile_async_stretch(dev, frames):
+    """Phase 18: a fresh async System (bench_torch.drive) over the orbit's
+    first ASYNC_PROFILE_FRAMES[1] frames, the frames from
+    ASYNC_PROFILE_FRAMES[0] on traced by torch.profiler (CUDA activity
+    only): the device busy share and the kernels on each stream."""
+    import bench_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    first, last = ASYNC_PROFILE_FRAMES
+    sys_ = System(kitti_stereo_config(), async_mode=True, device=dev)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def on_frame(i):
+        if i == first:
+            prof.start()
+
+    bench_torch.drive(sys_, frames[:last], 0, hook=on_frame)
+    torch.cuda.synchronize(dev)
+    prof.stop()
+    sys_.shutdown()
+    _check_threads(sys_, "profiled async drive")
+    busy, per_stream = _busy_share(prof)
+    ms = 1e3 * np.asarray(sys_.frame_times[first:])
+    log(f"phase 18 device busy share of async frames {first}..{last - 1} (torch.profiler, CUDA "
+        f"activity only; union of kernel intervals over their span): {busy:.3f}; kernels per "
+        f"stream id {per_stream}; lane median {np.median(ms):.2f} ms under the trace")
+    return busy
+
+
+def _best2_by_thread():
+    from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
+
+    return HAMMING_BEST2_KERNEL.launches_by_thread
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1393,6 +1713,7 @@ def main():
     log(info)
     frames, gt = render_orbit()  # forks: before the first CUDA call
     tum_frames, tum_gt = render_tum()
+    close_frames, close_gt = render_close()
 
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
 
@@ -1426,6 +1747,10 @@ def main():
     err, sensor_times = check_hamming_sensor_shapes(dev, sensor_shapes, loop["shapes"])
     max_err = max(max_err, err)
     times.update(sensor_times)
+    bench = drive_async_bench(dev, frames, gt, loop["ms"])
+    close = drive_tum_close(dev, close_frames, close_gt)
+    async_sensors = drive_async_sensors(dev, close_frames, tum_frames)
+    profile_async_stretch(dev, frames)
 
     log(f"plain PyTorch loop-closing units on the card (ms): {json.dumps(unit_ms)}")
     log(f"card: {info}")
@@ -1440,14 +1765,22 @@ def main():
             "launches_lane_drive": lane["launches"],
             "launches_rgbd_drive": rgbd["launches"],
             "launches_localization": loc["launches"],
-            "launches_mono_drive": mono["launches"]}),
+            "launches_mono_drive": mono["launches"],
+            "launches_async_bench_by_thread": bench["launches_by_thread"],
+            "launches_close_rgbd_drive": close["launches"],
+            "launches_async_rgbd_drive": async_sensors["rgbd"]["launches"],
+            "launches_async_mono_drive": async_sensors["mono"]["launches"]}),
             ("hamming_matrix", {  # no main-path caller is left: each drive asserts 0
                 "launches": loop["matrix_launches"],
                 "launches_mapping_drive": mapping["matrix_launches"],
                 "launches_lane_drive": lane["matrix_launches"],
                 "launches_rgbd_drive": rgbd["matrix_launches"],
                 "launches_localization": loc["matrix_launches"],
-                "launches_mono_drive": mono["matrix_launches"]})):
+                "launches_mono_drive": mono["matrix_launches"],
+                "launches_async_bench_drive": bench["matrix_launches"],
+                "launches_close_rgbd_drive": close["matrix_launches"],
+                "launches_async_rgbd_drive": async_sensors["rgbd"]["matrix_launches"],
+                "launches_async_mono_drive": async_sensors["mono"]["matrix_launches"]})):
         head = times["lane"][name]  # the local-point search's shape, 4096 x 2000
         kernels.append({"name": name, **common, **launches,
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

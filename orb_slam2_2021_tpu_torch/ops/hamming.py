@@ -94,7 +94,7 @@ def hamming_matrix(a, b):
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, stream)
     if err != 0:
         raise RuntimeError(f"hamming_matrix kernel launch failed: CUDA error {err}")
-    HAMMING_KERNEL.launches += 1
+    HAMMING_KERNEL.count()
     return out
 
 
@@ -168,7 +168,7 @@ def hamming_best2(a, b, mask):
                  n, m, T, slices, stream)
     if err != 0:
         raise RuntimeError(f"hamming_best2 kernel launch failed: CUDA error {err}")
-    HAMMING_BEST2_KERNEL.launches += 1
+    HAMMING_BEST2_KERNEL.count()
     return best_idx, best, second_idx, second
 
 

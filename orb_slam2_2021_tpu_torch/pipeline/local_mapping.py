@@ -18,12 +18,21 @@ baseline over the neighbour's median scene depth instead of the stereo
 baseline, and local BA pins a second camera when no fixed camera observes
 the window, since a monocular map has a free scale.
 
-Not ported yet (ROADMAP.md): the async worker, its abort and pacing
-(step 11); the dense BA path `use_cg_local_ba=False`.
+Runs inline (`process_pending`, synchronous mode) or on a worker thread
+(`run_worker`, started by System in async mode: LocalMapping::Run), which
+also keeps the occupancy grid. The map lock is held only for the host
+snapshot and merge sections of each stage, never across device work, so
+the tracking lane interleaves with the worker; a keyframe inserted while a
+local BA solves aborts the solve between its two LM phases (mbAbortBA).
+The worker reads the live frame a keyframe was promoted from on its own
+stream, after an event the lane recorded (pipeline/streams.py).
+
+Not ported yet (ROADMAP.md): the dense BA path `use_cg_local_ba=False`.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional
@@ -136,6 +145,15 @@ class LocalMapping:
         self._devkf: Optional[DeviceKFStore] = None
         self.loop_closer = None  # set by System when loop closing is on
         self.monocular = False   # set by System for monocular input
+        # async mode (System sets these): the worker thread's state, its
+        # stream, the grid it keeps, and the exception it died of
+        self.async_mode = False
+        self.streams = None
+        self.grid_mapper = None
+        self.error: Optional[BaseException] = None
+        self._cv = threading.Condition()
+        self._finish_requested = False
+        self._busy = False
 
     def _store(self) -> DeviceKFStore:
         if self._devkf is None:
@@ -143,24 +161,32 @@ class LocalMapping:
         self._devkf.maybe_grow(self.map.kf_capacity)
         return self._devkf
 
-    def insert_keyframe(self, k: int, words, frame):
+    def insert_keyframe(self, k: int, words, frame=None):
         """Queue keyframe k with its BoW words (None without place
-        recognition), copying the features of the live frame it was
-        promoted from into the device store."""
-        self._store().set_from_frame(k, frame)
-        self.queue.append((k, words))
-        self.abort_ba = True
+        recognition) and the live frame it was promoted from, whose device
+        features the store adopts when k is processed (None: uploaded from
+        the host map store). Aborts a local BA in flight. The caller holds
+        the map lock."""
+        ready = None
+        if frame is not None and self.streams is not None:
+            ready = self.streams.handoff(
+                (frame.kp.desc, frame.kp.xy, frame.u_right, frame.depth, frame.kp.octave), "mapping")
+        with self._cv:
+            self.queue.append((k, words, frame, ready))
+            self.abort_ba = True
+            self._cv.notify_all()
         mps = self.map.kf_mp[k]
         for m in mps[mps >= 0]:
             if self.map.mp_first_kf[m] == self.map.kf_frame_id[k] or self.map.mp_first_kf[m] == k:
                 self.recent[int(m)] = k
 
     def _pop(self):
-        if not self.queue:
-            return None
-        item = self.queue.popleft()
-        self.abort_ba = bool(self.queue)
-        return item
+        with self._cv:
+            if not self.queue:
+                return None
+            item = self.queue.popleft()
+            self.abort_ba = bool(self.queue)
+            return item
 
     def process_pending(self):
         while True:
@@ -169,28 +195,93 @@ class LocalMapping:
                 return
             self._process(*item)
 
+    def run_worker(self):
+        """The mapping thread (LocalMapping::Run): drain the queue on the
+        mapping stream until request_finish and an empty queue. Loop closing
+        runs inline on this thread (its global BA on a thread of its own). An
+        exception ends the thread and is kept in `error` for System to
+        raise on the lane."""
+        with self.streams.enter("mapping"):
+            try:
+                while True:
+                    with self._cv:
+                        while not self.queue and not self._finish_requested:
+                            self._cv.wait(timeout=0.05)
+                        if not self.queue:
+                            return
+                        self._busy = True
+                    try:
+                        self.process_pending()
+                    finally:
+                        with self._cv:
+                            self._busy = False
+                            self._cv.notify_all()
+            except BaseException as e:  # re-raised on the lane by System
+                self.error = e
+
+    def idle(self) -> bool:
+        """No keyframe queued or in process (AcceptKeyFrames)."""
+        with self._cv:
+            return not self.queue and not self._busy
+
+    def wait_idle(self, thread):
+        """Block until the worker has drained the queue (or died)."""
+        with self._cv:
+            while (self.queue or self._busy) and thread.is_alive():
+                self._cv.wait(timeout=0.05)
+
+    def request_finish(self):
+        """RequestFinish: the worker ends once its queue is empty."""
+        with self._cv:
+            self._finish_requested = True
+            self._cv.notify_all()
+
     def request_reset(self):
-        """RequestReset: drop the queued keyframes so the caller can clear
-        the map."""
-        self.queue.clear()
+        """RequestReset: drop the queued keyframes and, in async mode, wait
+        until the worker is between keyframes and its stream has finished,
+        so the caller can clear the map. Call it without the map lock (the
+        worker may need it to finish its keyframe)."""
+        with self._cv:
+            self.queue.clear()
+            self.abort_ba = True
+            while self._busy:
+                self._cv.wait(timeout=0.05)
+        if self.streams is not None:
+            self.streams.synchronize("mapping")
         self.recent.clear()
         self.abort_ba = False
         if self._devkf is not None:
             self._devkf.reset()
 
-    def _process(self, k: int, words=None):
-        """The per-keyframe pipeline."""
-        if not self.map.kf_valid[k]:
-            return
-        self._cull_recent_points(k)
+    def _process(self, k: int, words=None, frame=None, ready=None):
+        """The per-keyframe pipeline. The map lock is held for the host
+        snapshot and merge sections inside each stage, never across device
+        work."""
+        if frame is not None:
+            if ready is not None:
+                self.streams.wait(ready)
+            self._store().set_from_frame(k, frame)
+        lock = self.map.lock
+        with lock:
+            if not self.map.kf_valid[k]:
+                return
+            self._cull_recent_points(k)
         self._mapping_device_pass(k)
         if self.map.n_kf > 2 and not self.queue:
             self._local_ba(k)
-        self._cull_keyframes(k)
-        self.map.write_epoch += 1  # the tracker's snapshot cache must refresh
+        with lock:
+            self._cull_keyframes(k)
+            self.map.write_epoch += 1  # the tracker's snapshot cache must refresh
         if self.loop_closer is not None:
             self.loop_closer.insert_keyframe(k, words)
             self.loop_closer.process_pending()
+        if self.async_mode and self.grid_mapper is not None:
+            # the worker keeps the grid in async mode (the GridMapping thread)
+            with lock:
+                loop_closed = bool(self.loop_closer and self.loop_closer.loop_closed_flag)
+                if loop_closed:
+                    self.loop_closer.loop_closed_flag = False
+                self.grid_mapper.process_new(loop_closed)
 
     # ------------------------------------------------------------------
     def _kf_views(self, ks, unbound_only: bool) -> KFView:
@@ -277,36 +368,42 @@ class LocalMapping:
 
     def _mapping_device_pass(self, k: int):
         """CreateNewMapPoints + SearchInNeighbors as bounded device units,
-        each one launch group and one device -> host copy. Fuse projects the
-        point set as it was before this keyframe's triangulation (both
-        snapshots are taken first, as in the reference)."""
+        each one launch group and one device -> host copy, merged under the
+        map lock (bindings that changed in flight are re-checked there). Fuse
+        projects the point set as it was before this keyframe's
+        triangulation (both snapshots are taken first, as in the reference)."""
         m = self.map
-        tri = self._snapshot_triangulation(k)
-        fuse = self._snapshot_fuse(k)
+        with m.lock:
+            tri = self._snapshot_triangulation(k)
+            fuse = self._snapshot_fuse(k)
 
         if tri is not None:
             neighbors, view1, views2 = tri
             match2_b, xw_b, ok_b, _ = triangulate_pair(self.cam, view1, views2, self.cfg)
             match2_b, xw_b, ok_b = to_host(match2_b, xw_b, ok_b)
-            if m.kf_valid[k]:
-                self._merge_new_points(k, neighbors, match2_b, xw_b, ok_b)
+            with m.lock:
+                if m.kf_valid[k]:
+                    self._merge_new_points(k, neighbors, match2_b, xw_b, ok_b)
         if fuse is not None:
             chunks, sel, pts, back, touched = fuse
             for chunk, views in chunks:
                 bf_b, acc_b, _ = fuse_project(self.cam, views, *pts, self.cfg)
                 acc_b, bf_b = to_host(acc_b, bf_b)
-                for ti, kt in enumerate(chunk):
-                    if m.kf_valid[kt]:
-                        self._merge_fuse(sel, acc_b[ti], bf_b[ti], kt)
+                with m.lock:
+                    for ti, kt in enumerate(chunk):
+                        if m.kf_valid[kt]:
+                            self._merge_fuse(sel, acc_b[ti], bf_b[ti], kt)
             for bsel, bpts, view in back:
                 best_feat, accept, _ = fuse_project(self.cam, view, *bpts, self.cfg)
                 accept, best_feat = to_host(accept[0], best_feat[0])
+                with m.lock:
+                    if m.kf_valid[k]:
+                        self._merge_fuse(bsel, accept, best_feat, k)
+            with m.lock:
+                if len(touched):
+                    m.update_point_stats(np.asarray(touched, np.int64))
                 if m.kf_valid[k]:
-                    self._merge_fuse(bsel, accept, best_feat, k)
-            if len(touched):
-                m.update_point_stats(np.asarray(touched, np.int64))
-            if m.kf_valid[k]:
-                m.update_connections(k)
+                    m.update_connections(k)
 
     def _merge_new_points(self, k, neighbors, match2_b, xw_b, ok_b):
         created: List[int] = []
@@ -403,7 +500,8 @@ class LocalMapping:
         """Fuse the points `ids` into keyframe kt (loop closing's
         SearchAndFuse): snapshot, one device unit per FUSE_POINTS_PER_UNIT
         points, one device -> host copy, merge."""
-        units = self._snapshot_fuse_into(ids, kt)
+        with self.map.lock:
+            units = self._snapshot_fuse_into(ids, kt)
         if not units:
             return
         outs = []
@@ -411,10 +509,11 @@ class LocalMapping:
             best_feat, accept, _ = fuse_project(self.cam, view, *pts, self.cfg)
             outs += [accept[0], best_feat[0]]
         pulled = to_host(*outs)
-        if not self.map.kf_valid[kt]:
-            return
-        for u, (sel, _, _) in enumerate(units):
-            self._merge_fuse(sel, pulled[2 * u], pulled[2 * u + 1], kt)
+        with self.map.lock:
+            if not self.map.kf_valid[kt]:
+                return
+            for u, (sel, _, _) in enumerate(units):
+                self._merge_fuse(sel, pulled[2 * u], pulled[2 * u + 1], kt)
 
     def _merge_fuse(self, sel, accept, best_feat, kt: int):
         """Apply fuse matches: add an observation or merge duplicate points
@@ -491,11 +590,12 @@ class LocalMapping:
     def _local_ba(self, k: int):
         """Local BA of keyframe k's window; writes back the poses and points
         and erases the outlier observations."""
-        window = self._local_ba_window(k)
+        m = self.map
+        with m.lock:
+            window = self._local_ba_window(k)
         if window is None:
             return
         prob_h, cams, cam_free, mp, obs_kf, obs_fe, obs_mp = window
-        m = self.map
         t0 = time.perf_counter()
         out = self._solve_ba_abortable(upload_problem(prob_h, self.device))
         if out is None:
@@ -503,8 +603,15 @@ class LocalMapping:
         Rn, tn, xwn, inlier = to_host(*out)
         self.ba_solve_times.append(
             (time.perf_counter() - t0, self.cfg.optim.local_ba_iters1 + self.cfg.optim.local_ba_iters2))
+        with m.lock:
+            self._ba_writeback(cams, cam_free, mp, prob_h.obs_valid & ~inlier, obs_kf, obs_fe, obs_mp,
+                               Rn, tn, xwn)
 
-        # write back optimized poses and points, skipping anything erased
+    def _ba_writeback(self, cams, cam_free, mp, outlier, obs_kf, obs_fe, obs_mp, Rn, tn, xwn):
+        """Write back the optimized poses and points, skipping anything
+        erased while the solve was in flight, and erase the outlier
+        observations. The caller holds the map lock."""
+        m = self.map
         nc = len(cams)
         wr = cam_free & m.kf_valid[cams]
         m.kf_R[cams[wr]] = Rn[:nc][wr]
@@ -513,7 +620,7 @@ class LocalMapping:
         m.mp_pos[mp[alive]] = xwn[: len(mp)][alive]
 
         # erase outlier observations
-        for o_i in np.nonzero(prob_h.obs_valid & ~inlier)[0]:
+        for o_i in np.nonzero(outlier)[0]:
             kf, f, mp_id = int(obs_kf[o_i]), int(obs_fe[o_i]), int(obs_mp[o_i])
             if m.kf_mp[kf, f] == mp_id:
                 m.kf_mp[kf, f] = -1
@@ -521,8 +628,10 @@ class LocalMapping:
 
     def _solve_ba_abortable(self, prob):
         """Two LM phases (5 Huber iterations, reclassify, 10 plain ones) with
-        an abort check before each; in synchronous mode nothing sets the
-        flag between them. Returns (R, t, xw, inlier) or None when aborted."""
+        an abort check before each (the g2o force-stop polled through
+        mbAbortBA); in synchronous mode nothing sets the flag between them.
+        Returns (R, t, xw, inlier), the first phase's when the second was
+        aborted, or None when aborted before the first."""
         ocfg = self.cfg.optim
         if self.abort_ba:
             return None
@@ -568,5 +677,10 @@ class LocalMapping:
             if redundant > self.cfg.mapping.kf_cull_redundancy * len(ms_n):
                 m.erase_keyframe(kf)
 
-    def finish(self):
-        self.process_pending()
+    def finish(self, worker=None):
+        """Drain the queue: inline, or with a live worker thread, by waiting
+        for it."""
+        if worker is not None and worker.is_alive():
+            self.wait_idle(worker)
+        else:
+            self.process_pending()

@@ -1,5 +1,4 @@
-"""Loop closing, synchronous (counterpart of
-orb_slam2_2021_tpu/pipeline/loop_closing.py).
+"""Loop closing (counterpart of orb_slam2_2021_tpu/pipeline/loop_closing.py).
 
 Per keyframe handed over by local mapping (LoopClosing::Run):
 - DetectLoop: BoW candidates from the keyframe database gated by the
@@ -21,14 +20,22 @@ RANSAC samples come from `self.sampler(valid, m, n_hyps)`: by default a
 `torch.Generator` on the host seeded with cfg.orb.n_features, as the
 reference seeds its key. Tests may inject the reference's own samples.
 
-Not ported (ROADMAP.md): the global-BA thread of async mode and its pacing
-(step 11), the device-mesh and cross-process global BA (step 12). Without
-the thread a global BA is never stale or aborted, so the reference's
-staleness index and stop flag are not carried.
+It runs inline after local mapping, on the caller's thread in synchronous
+mode and on the mapping worker in async mode. Detection, ComputeSim3 and
+CorrectLoop hold the map lock, as the reference's do. In async mode the
+global BA runs on an ephemeral thread of its own, on the "gba" stream
+(RunGlobalBundleAdjustment): a newer loop or a reset stops it between LM
+iterations (mbStopGBA), and its write-back is dropped when a newer loop
+superseded it (mnFullBAIdx); otherwise keyframes and points created while
+it solved are corrected through the spanning tree.
+
+Not ported (ROADMAP.md): the device-mesh and cross-process global BA
+(step 12).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Set, Tuple
@@ -94,6 +101,18 @@ class LoopClosing:
         self.gba_iter_times: List[float] = []
         # host-clock seconds of the last closed loop's stages
         self.loop_times: Dict[str, float] = {}
+        # global BA in async mode (mbRunningGBA, mbStopGBA, mnFullBAIdx):
+        # System sets async_mode and streams; each finished or dropped run
+        # appends {"idx", "outcome" (written / superseded / aborted),
+        # "seconds"} to gba_runs; an exception of the thread lands in error
+        self.async_mode = False
+        self.streams = None
+        self.running_gba = False
+        self.stop_gba = False
+        self.full_ba_idx = 0
+        self.gba_thread: Optional[threading.Thread] = None
+        self.gba_runs: List[dict] = []
+        self.error: Optional[BaseException] = None
 
     @property
     def loop_edges(self) -> Dict[int, Set[int]]:
@@ -103,8 +122,12 @@ class LoopClosing:
 
     # ------------------------------------------------------------------
     def request_reset(self):
-        """Drop queued keyframes and forget the loop bookkeeping."""
+        """Drop queued keyframes, stop a running global BA, and forget the
+        loop bookkeeping."""
         self.queue.clear()
+        self._stop_running_gba()
+        if self.streams is not None:
+            self.streams.synchronize("gba")
         self.last_loop_kf = -int(1e9)
         self.consistent_groups = []
         self.map.loop_edges.clear()
@@ -117,33 +140,50 @@ class LoopClosing:
         while self.queue:
             self._process(*self.queue.pop(0))
 
+    def _stop_running_gba(self):
+        """Supersede any global BA in flight and wait for its thread (call
+        it without the map lock: the thread may be waiting for the lock to
+        write back)."""
+        self.full_ba_idx += 1
+        if self.gba_thread is not None and self.gba_thread.is_alive():
+            self.stop_gba = True
+            self.gba_thread.join()
+        self.stop_gba = False
+
     def _process(self, k: int, words):
-        if words is not None:
-            self.kfdb.add_bow(k, words)
-        if not self.map.kf_valid[k]:
-            return
-        # protect the keyframe from culling while its detection runs
-        self.map.kf_not_erase[k] = True
-        candidates = self._detect_loop(k)
+        # the keyframe database is read by the lane's relocalization under
+        # the map lock, so it changes under the lock too
+        with self.map.lock:
+            if words is not None:
+                self.kfdb.add_bow(k, words)
+            if not self.map.kf_valid[k]:
+                return
+            # protect the keyframe from culling while its detection runs
+            self.map.kf_not_erase[k] = True
+            candidates = self._detect_loop(k)
         result = None
         if candidates:
-            for c in candidates:
-                self.map.kf_not_erase[c] = True
             t0 = time.perf_counter()
-            result = self._compute_sim3(k, candidates)
+            with self.map.lock:
+                for c in candidates:
+                    self.map.kf_not_erase[c] = True
+                result = self._compute_sim3(k, candidates)
             t_sim3 = time.perf_counter() - t0
         if result is not None:
             loop_kf, scw, matched_feat_mp = result
-            self._correct_loop(k, loop_kf, scw, matched_feat_mp)
+            self._stop_running_gba()
+            with self.map.lock:
+                self._correct_loop(k, loop_kf, scw, matched_feat_mp)
             self.loop_times["compute_sim3"] = t_sim3
-        # release erase protection; the matched pair stays protected
-        for c in set(candidates) | {k}:
-            if result is not None and c in (k, result[0]):
-                continue
-            self.map.set_erase(int(c))
-        # the keyframe becomes a retrieval candidate only now
-        if k in self.kfdb.bow:
-            self.kfdb.add_to_index(k)
+        with self.map.lock:
+            # release erase protection; the matched pair stays protected
+            for c in set(candidates) | {k}:
+                if result is not None and c in (k, result[0]):
+                    continue
+                self.map.set_erase(int(c))
+            # the keyframe becomes a retrieval candidate only now
+            if k in self.kfdb.bow:
+                self.kfdb.add_to_index(k)
 
     # ------------------------------------------------------------------
     def _detect_loop(self, k: int) -> List[int]:
@@ -278,7 +318,8 @@ class LoopClosing:
 
     # ------------------------------------------------------------------
     def _correct_loop(self, k: int, loop_kf: int, scw, matched_feat_mp: np.ndarray):
-        """CorrectLoop."""
+        """CorrectLoop. The caller holds the map lock and has stopped any
+        global BA in flight."""
         t0 = time.perf_counter()
         if self.local_mapper is not None:
             self.local_mapper.process_pending()
@@ -350,7 +391,12 @@ class LoopClosing:
         t1 = time.perf_counter()
         self._optimize_essential_graph(k, loop_kf, corrected, old_poses, moved_by)
         t2 = time.perf_counter()
-        self._run_global_ba()
+        if self.async_mode:
+            self.gba_thread = threading.Thread(target=self._gba_entry, args=(self.full_ba_idx,),
+                                               name="gba", daemon=True)
+            self.gba_thread.start()
+        else:
+            self._run_global_ba(self.full_ba_idx)
         t3 = time.perf_counter()
         self.loop_times = {"correct": t1 - t0, "essential_graph": t2 - t1, "global_ba": t3 - t2}
 
@@ -496,51 +542,81 @@ class LoopClosing:
         self.map.update_point_stats(mp_ids)
 
     # ------------------------------------------------------------------
-    def _run_global_ba(self):
+    def _gba_entry(self, idx: int):
+        """The global-BA thread (RunGlobalBundleAdjustment), on the "gba"
+        stream; an exception is kept in `error` for System to raise."""
+        self.running_gba = True
+        try:
+            with self.streams.enter("gba"):
+                self._run_global_ba(idx)
+        except BaseException as e:  # re-raised on the lane by System
+            self.error = e
+        finally:
+            self.running_gba = False
+
+    def _run_global_ba(self, idx: Optional[int] = None):
         """Bundle adjustment over every keyframe and map point, keyframe 0
         fixed for the gauge: the reduced camera system of the PQ layout up to
         128 padded cameras (one LM iteration per call), the matrix-free flat
         solver above. Observations beyond global_ba_obs_per_point per point
-        are dropped on the reduced-system path, as in the reference."""
+        are dropped on the reduced-system path, as in the reference. The
+        problem is assembled under the map lock and solved outside it; the
+        solve stops between iterations when stop_gba is set, and the result
+        is written back only if no newer loop (full_ba_idx) superseded it
+        (`idx` None: the current index)."""
+        idx = self.full_ba_idx if idx is None else idx
         m = self.map
         ocfg = self.cfg.optim
-        kfs = np.nonzero(m.kf_valid)[0]
-        mp = np.nonzero(m.mp_valid)[0]
-        mp = mp[m.mp_obs_n[mp] > 0]
-        if len(kfs) < 3 or len(mp) < 32:
-            return
-        n_obs = int(np.count_nonzero(m.mp_obs_kf[mp] >= 0))
-        C_pad, P_pad, O_pad = global_problem_shapes(len(kfs), len(mp), n_obs)
-        Qg = ocfg.global_ba_obs_per_point
-        use_rcs = C_pad <= 128
-        cam_free = kfs != 0
-        if use_rcs:
-            prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad=None,
-                                                Q_pad=Qg, obs_per_point_cap=Qg, pq_layout=True)
-        else:
-            prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad)
+        t_start = time.perf_counter()
+        with m.lock:
+            kfs = np.nonzero(m.kf_valid)[0]
+            mp = np.nonzero(m.mp_valid)[0]
+            mp = mp[m.mp_obs_n[mp] > 0]
+            if len(kfs) < 3 or len(mp) < 32:
+                return
+            n_obs = int(np.count_nonzero(m.mp_obs_kf[mp] >= 0))
+            C_pad, P_pad, O_pad = global_problem_shapes(len(kfs), len(mp), n_obs)
+            Qg = ocfg.global_ba_obs_per_point
+            use_rcs = C_pad <= 128
+            cam_free = kfs != 0
+            if use_rcs:
+                prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad=None,
+                                                    Q_pad=Qg, obs_per_point_cap=Qg, pq_layout=True)
+            else:
+                prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad)
         prob = upload_problem(prob, self.device)
         R, t, xw = prob.R, prob.t, prob.xw
         lam = torch.tensor(ocfg.lm_lambda_init, dtype=torch.float32, device=self.device)
         active = prob.obs_valid.to(torch.float32)
         n_iters = ocfg.global_ba_iters
+        index = None if use_rcs else flat_index(prob)
         t0 = time.perf_counter()
-        if use_rcs:
-            for _ in range(n_iters):
+        for _ in range(n_iters):
+            if self.stop_gba:
+                self.gba_runs.append({"idx": idx, "outcome": "aborted",
+                                      "seconds": time.perf_counter() - t_start})
+                return  # the loop that stopped it runs its own global BA
+            if use_rcs:
                 R, t, xw, lam, _ = lm_chunk_pq(self.cam, prob, R, t, xw, lam, active, True, ocfg, 1)
-        else:
-            index = flat_index(prob)
-            for _ in range(n_iters):
+            else:
                 R, t, xw, lam, _ = gba_iteration(self.cam, prob, index, R, t, xw, lam, active,
                                                  True, ocfg)
         R, t, xw = to_host(R, t, xw)
         self.gba_iter_times = [(time.perf_counter() - t0) / n_iters] * n_iters
-        self._gba_writeback(kfs, cam_free, mp, R, t, xw)
+        with m.lock:
+            if idx != self.full_ba_idx or self.stop_gba:
+                outcome = "superseded"  # a newer loop correction owns the map now
+            else:
+                self._gba_writeback(kfs, cam_free, mp, R, t, xw)
+                outcome = "written"
+        self.gba_runs.append({"idx": idx, "outcome": outcome, "seconds": time.perf_counter() - t_start})
 
     def _gba_writeback(self, kfs, cam_free, mp, Rn, tn, xwn):
-        """Write the global BA result into the map: optimized keyframes and
-        points directly; keyframes outside the problem through the spanning
-        tree, their points through their reference keyframe."""
+        """Write the global BA result into the map as it stands now:
+        optimized keyframes and points directly; keyframes outside the
+        problem (created while it solved) through the spanning tree, and the
+        points outside it through their reference keyframe. The caller holds
+        the map lock."""
         m = self.map
         nk = len(kfs)
         in_prob_kf = np.zeros(m.kf_capacity, bool)

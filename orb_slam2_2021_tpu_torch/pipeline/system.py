@@ -1,21 +1,36 @@
 """System facade (counterpart of orb_slam2_2021_tpu/pipeline/system.py).
 
-Synchronous SLAM at the reference's defaults: the packaged vocabulary,
-mapping and loop closing on, on the card unless the caller passes
-device="cpu". Three entry points, one per sensor: `track_stereo` (one upload
-of the uint8 pair), `track_rgbd` (image and depth map, the depth divided by
-the config's DepthMapFactor) and `track_monocular` (one image; loops then
-solve for scale). Per frame: the frame build on the device, tracking against
-the shared host MapStore, then local mapping of any new keyframe (which
-hands it to loop closing) and the occupancy grid, inline; a closed loop
-makes the grid replay. Localization mode tracks against the map without
-changing it. Maps save to and boot from a map file; trajectories export in
-the KITTI and TUM formats. What is not ported yet raises
-NotImplementedError (see ROADMAP.md): async mode and the dense local BA.
+SLAM at the reference's defaults: the packaged vocabulary, mapping and loop
+closing on, on the card unless the caller passes device="cpu". Three entry
+points, one per sensor: `track_stereo` (one upload of the uint8 pair, or a
+frame prefetched by `prefetch_stereo`), `track_rgbd` (image and depth map,
+the depth divided by the config's DepthMapFactor) and `track_monocular` (one
+image; loops then solve for scale); `track_stereo_prefetch` tracks a
+prefetched frame and prefetches the next one. Per frame: the frame build on
+the device, tracking against the shared host MapStore, then local mapping of
+any new keyframe (which hands it to loop closing) and the occupancy grid; a
+closed loop makes the grid replay.
+
+Synchronous by default: mapping, loop closing and the grid run inline after
+each frame, on the caller's thread. With async_mode=True the reference's
+thread layout: tracking on the caller's thread, local mapping with loop
+closing and the grid on a worker thread, global BA on an ephemeral thread,
+each on a CUDA stream of its own (pipeline/streams.py; the lane's at the
+highest priority). An exception on either thread is raised on the caller's
+next call or in `shutdown`, which joins both threads and waits for every
+stream before anything is read back.
+
+Localization mode tracks against the map without changing it. Maps save to
+and boot from a map file; trajectories export in the KITTI and TUM formats;
+`profile_dir` records a torch.profiler trace from the first frame to
+`shutdown`. The dense local BA is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 import time
 from typing import List, Optional, Tuple
 
@@ -25,7 +40,7 @@ import torch
 from .. import resolve_device
 from ..config import SlamConfig
 from ..convert import desc_from_numpy
-from ..frontend.frame import build_mono_frame, build_rgbd_frame, build_stereo_frame_from_u8
+from ..frontend.frame import Frame, build_mono_frame, build_rgbd_frame, build_stereo_frame_from_u8
 from ..gridmap.grid import GridMapper
 from ..io.metrics import write_ndjson
 from ..io.persistence import load_map, save_map
@@ -34,21 +49,24 @@ from ..mapping.map_store import MapStore
 from ..place.bundle import PlaceRecognition
 from .local_mapping import LocalMapping
 from .loop_closing import LoopClosing
+from .streams import DeviceStreams
 from .tracking import Tracking, TrackState
+
+JOIN_TIMEOUT_S = 600.0  # a worker or GBA thread not done by then is a fault
 
 
 class System:
     def __init__(self, cfg: SlamConfig, enable_mapping: bool = True,
                  enable_loop_closing: bool = True, vocab_path: Optional[str] = None,
                  place_rec: Optional[PlaceRecognition] = None,
-                 sensor: str = "stereo", async_mode: bool = False, device="cuda"):
+                 sensor: str = "stereo", async_mode: bool = False,
+                 profile_dir: Optional[str] = None, device="cuda"):
         """Load the vocabulary (the packaged one unless `vocab_path` or
         `place_rec` is given), create the map and keyframe database, and wire
         Tracking -> LocalMapping -> LoopClosing for `sensor` ("stereo",
-        "rgbd" or "mono"). Runs on the card unless `device` says otherwise;
+        "rgbd" or "mono"); with async_mode (and mapping on) start the
+        mapping worker. Runs on the card unless `device` says otherwise;
         without a card a CUDA device raises."""
-        if async_mode:
-            raise NotImplementedError("async mode is not ported yet (ROADMAP.md queue 1, step 11)")
         if sensor not in ("stereo", "rgbd", "mono"):
             raise ValueError(f"unknown sensor {sensor!r}")
         self.cfg = cfg
@@ -80,6 +98,7 @@ class System:
         self.grid_mapper = GridMapper(cfg, self.map, self.device) if enable_mapping else None
         self.tracker.request_system_reset = self.reset
         self.frame_times: List[float] = []
+        self.lock_waits: List[float] = []  # seconds each frame waited for the map lock
         self.metrics: List[dict] = []  # per-frame records (io/metrics.py schema)
         self._frame_id = 0
         self._reset_requested = False
@@ -87,6 +106,44 @@ class System:
         # factor of 0 or 1 means the depth is already metric
         f = cfg.depth_map_factor
         self._depth_scale = 1.0 if abs(f) < 1e-5 or f == 1.0 else 1.0 / f
+        self._profile_dir = profile_dir
+        self.profiler = None  # the torch.profiler.profile of profile_dir
+
+        self.async_mode = async_mode and self.local_mapper is not None
+        self.streams: Optional[DeviceStreams] = None
+        self._worker: Optional[threading.Thread] = None
+        if self.async_mode:
+            self.streams = DeviceStreams(self.device)
+            lm = self.local_mapper
+            lm.async_mode, lm.streams, lm.grid_mapper = True, self.streams, self.grid_mapper
+            if self.loop_closer is not None:
+                self.loop_closer.async_mode, self.loop_closer.streams = True, self.streams
+            if self.device.type == "cuda":
+                # the vocabulary and the grid were made on this thread's
+                # stream; the non-blocking role streams do not wait for it
+                torch.cuda.synchronize(self.device)
+            self._worker = threading.Thread(target=lm.run_worker, name="mapping", daemon=True)
+            self._worker.start()
+
+    def _lane(self):
+        """The lane's stream as the current stream (async mode on a card)."""
+        return self.streams.enter("lane") if self.streams is not None else contextlib.nullcontext()
+
+    def _raise_thread_error(self):
+        """Raise the exception a worker or GBA thread died of."""
+        for part in (self.local_mapper, self.loop_closer):
+            if part is not None and part.error is not None:
+                raise part.error
+
+    def _pre_frame(self):
+        self._raise_thread_error()
+        self._maybe_reset()
+        if self._profile_dir is not None and self.profiler is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.profiler = torch.profiler.profile(activities=acts)
+            self.profiler.start()
 
     def reset(self):
         """Flag a reset; it runs before the next frame (System::Reset)."""
@@ -110,7 +167,10 @@ class System:
 
     def _post_track(self):
         """Local mapping (and loop closing) of the keyframes queued by this
-        frame, then the occupancy grid, replayed after a closed loop."""
+        frame, then the occupancy grid, replayed after a closed loop; in
+        async mode the worker does all of it."""
+        if self.async_mode:
+            return
         if self.local_mapper is not None:
             self.local_mapper.process_pending()
         if self.grid_mapper is not None:
@@ -133,15 +193,58 @@ class System:
             stacked = stacked * 255.0
         return np.clip(stacked, 0, 255).astype(np.uint8)
 
-    def track_stereo(self, image_left, image_right, timestamp: float = 0.0,
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device: from pinned memory without blocking
+        the host, on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _build_stereo(self, pair: np.ndarray) -> Frame:
+        return build_stereo_frame_from_u8(self._upload(pair), self.cfg)
+
+    def prefetch_stereo(self, image_left, image_right, normalized: Optional[bool] = None) -> Frame:
+        """Upload a pair and enqueue its frame build ahead of the frame that
+        will consume it; returns the frame handle for `track_stereo`."""
+        with self._lane():
+            return self._build_stereo(self._pack_stereo_u8(image_left, image_right, normalized))
+
+    def track_stereo(self, image_left, image_right=None, timestamp: float = 0.0,
                      normalized: Optional[bool] = None):
-        """Per-frame stereo entry (System::TrackStereo). Returns Tcw as
-        (R, t) numpy arrays, or None while initializing / lost."""
-        self._maybe_reset()
-        t0 = time.perf_counter()
-        pair = torch.from_numpy(self._pack_stereo_u8(image_left, image_right, normalized))
-        frame = build_stereo_frame_from_u8(pair.to(self.device), self.cfg)
-        return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
+        """Per-frame stereo entry (System::TrackStereo): a host pair, or a
+        frame handle from `prefetch_stereo` as `image_left` (image_right
+        None). Returns Tcw as (R, t) numpy arrays, or None while
+        initializing / lost."""
+        with self._lane():
+            self._pre_frame()
+            t0 = time.perf_counter()
+            if isinstance(image_left, Frame):
+                frame = image_left
+            else:
+                frame = self._build_stereo(self._pack_stereo_u8(image_left, image_right, normalized))
+            return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
+
+    def track_stereo_prefetch(self, frame: Frame, next_images, timestamp: float):
+        """Track a prefetched `frame` and prefetch `next_images` (a pair, or
+        None at the end), whose upload and build are enqueued between this
+        frame's fused track step and its readback. Returns (pose, the next
+        frame's handle or None)."""
+        with self._lane():
+            payload = None if next_images is None else self._pack_stereo_u8(*next_images)
+            if payload is not None:
+                self.tracker.prefetch_cb = lambda: self._build_stereo(payload)
+            self.tracker.prefetch_result = None
+            try:
+                pose = self.track_stereo(frame, timestamp=timestamp)
+                handle = self.tracker.prefetch_result
+            finally:
+                self.tracker.prefetch_cb = self.tracker.prefetch_result = None
+            if handle is None and payload is not None:
+                # initialization, relocalization and the reference-keyframe
+                # path have no hook
+                handle = self._build_stereo(payload)
+            return pose, handle
 
     def _upload_image(self, image) -> torch.Tensor:
         """A host image as a float32 [H, W] tensor on the device (uint8
@@ -149,32 +252,36 @@ class System:
         img = np.asarray(image)
         if img.dtype != np.uint8:
             img = img.astype(np.float32, copy=False)
-        return torch.from_numpy(np.ascontiguousarray(img)).to(self.device).to(torch.float32)
+        return self._upload(img).to(torch.float32)
 
     def track_rgbd(self, image, depth_map, timestamp: float = 0.0):
         """Per-frame RGB-D entry (System::TrackRGBD): a grey image and a
-        depth map of the same size, in the config's DepthMapFactor units.
-        Returns Tcw as (R, t) numpy arrays, or None while lost."""
-        self._maybe_reset()
-        t0 = time.perf_counter()
-        depth = torch.from_numpy(np.ascontiguousarray(depth_map, np.float32)).to(self.device)
-        frame = build_rgbd_frame(self._upload_image(image), depth, self.cfg, self._depth_scale)
-        return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
+        depth map of the same size, in the config's DepthMapFactor units
+        (uint16, as a TUM depth PNG holds it, or float). Returns Tcw as (R,
+        t) numpy arrays, or None while lost."""
+        with self._lane():
+            self._pre_frame()
+            t0 = time.perf_counter()
+            depth = self._upload(np.asarray(depth_map, np.float32))
+            frame = build_rgbd_frame(self._upload_image(image), depth, self.cfg, self._depth_scale)
+            return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
 
     def track_monocular(self, image, timestamp: float = 0.0):
         """Per-frame monocular entry (System::TrackMonocular). Returns Tcw
         as (R, t) numpy arrays (up to the map's scale), or None while
         initializing / lost."""
-        self._maybe_reset()
-        t0 = time.perf_counter()
-        frame = build_mono_frame(self._upload_image(image), self.cfg)
-        return self._track(frame, self.tracker.track_mono_frame, timestamp, t0)
+        with self._lane():
+            self._pre_frame()
+            t0 = time.perf_counter()
+            frame = build_mono_frame(self._upload_image(image), self.cfg)
+            return self._track(frame, self.tracker.track_mono_frame, timestamp, t0)
 
     def _track(self, frame, track_fn, timestamp: float, t0: float):
         """Track a built frame, run the mapping work it queued, and record
         the frame's times and metrics."""
         t1 = time.perf_counter()
         with self.map.lock:
+            self.lock_waits.append(time.perf_counter() - t1)
             pose = track_fn(frame, self._frame_id, timestamp)
         t2 = time.perf_counter()
         self._post_track()
@@ -222,16 +329,23 @@ class System:
             "fps": float(1.0 / np.median(ts)),
         }
 
+    def _grid_read(self, fn):
+        """Read the grid; in async mode under the map lock, after the
+        worker's enqueued grid updates."""
+        if self.grid_mapper is None:
+            return None
+        if not self.async_mode:
+            return fn()
+        with self._lane(), self.map.lock:
+            self.streams.wait_role("mapping")
+            return fn()
+
     def occupancy_grid(self):
         """The live occupancy grid, or None with mapping off."""
-        if self.grid_mapper is None:
-            return None
-        return self.grid_mapper.occupancy_grid()
+        return self._grid_read(lambda: self.grid_mapper.occupancy_grid())
 
     def point_cloud(self):
-        if self.grid_mapper is None:
-            return None
-        return self.grid_mapper.point_cloud()
+        return self._grid_read(lambda: self.grid_mapper.point_cloud())
 
     def activate_localization_mode(self):
         """System::ActivateLocalizationMode: track against the map as it
@@ -247,8 +361,10 @@ class System:
     def save_map(self, path: str):
         """System::SaveMap: drain mapping, then write the map file."""
         if self.local_mapper is not None:
-            self.local_mapper.finish()
-        save_map(path, self.map, next_frame_id=self._frame_id)
+            self.local_mapper.finish(self._worker)
+        self._raise_thread_error()
+        with self.map.lock:
+            save_map(path, self.map, next_frame_id=self._frame_id)
 
     @classmethod
     def from_map_file(cls, cfg: SlamConfig, path: str, **kwargs):
@@ -280,12 +396,31 @@ class System:
         return sys_
 
     def shutdown(self):
-        """Drain the mapping queue (and with it loop closing) and the grid;
-        nothing runs in the background in synchronous mode. Then wait for
-        the device."""
-        if self.local_mapper is not None:
-            self.local_mapper.finish()
-        if self.grid_mapper is not None:
-            self._post_track()
+        """System::Shutdown: finish the worker and join it, join a running
+        global BA, drain what is left inline, wait for every stream and the
+        device, stop the profiler; then raise what a thread died of."""
+        if self._worker is not None:
+            self.local_mapper.request_finish()
+            self._worker.join(timeout=JOIN_TIMEOUT_S)
+            if self._worker.is_alive():
+                raise RuntimeError(f"the mapping worker did not finish in {JOIN_TIMEOUT_S:.0f} s")
+        if self.loop_closer is not None and self.loop_closer.gba_thread is not None:
+            self.loop_closer.gba_thread.join(timeout=JOIN_TIMEOUT_S)
+            if self.loop_closer.gba_thread.is_alive():
+                raise RuntimeError(f"the global-BA thread did not finish in {JOIN_TIMEOUT_S:.0f} s")
+        if self.streams is not None:
+            self.streams.synchronize()
+        self.async_mode = False
+        self._raise_thread_error()
+        with self._lane():
+            if self.local_mapper is not None:
+                self.local_mapper.finish()
+            if self.grid_mapper is not None:
+                self._post_track()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.profiler is not None:
+            self.profiler.stop()
+            os.makedirs(self._profile_dir, exist_ok=True)
+            self.profiler.export_chrome_trace(os.path.join(self._profile_dir, "trace.json"))
+            self._profile_dir = None  # one trace per System

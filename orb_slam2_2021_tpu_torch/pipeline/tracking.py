@@ -46,6 +46,7 @@ from ..mapping.map_store import MapStore
 from ..solvers.epnp import MIN_SAMPLE, epnp_ransac
 from ..solvers.horn_sim3 import sample_indices
 from ..solvers.two_view import MIN_SET, two_view_init
+from .streams import pull_after
 from .track_steps import (
     bow_track_step, frame_pack_step, fused_track_step, local_track_step, motion_track_step,
 )
@@ -147,6 +148,10 @@ class Tracking:
         self._kf_close_counts = None
         self._bind_cur = np.full(cfg.orb.n_features, -1, np.int64)
         self._ref_anchor = None
+        # next-frame prefetch (System.track_stereo_prefetch): a callable run
+        # between the fused step's launches and its readback, and its result
+        self.prefetch_cb = None
+        self.prefetch_result = None
 
     def _dev(self, a, dtype=None):
         return tensor(a, self.device, dtype)
@@ -704,8 +709,13 @@ class Tracking:
             self._dev(geom), self._dev(last_slot, torch.int32), self._dev(pose_pack),
             *self._snap_dev, self.cfg,
         )
-        # the frame's one device -> host copy: out_f bits | enc | visible
-        out = torch.cat([out_f.view(torch.int32), out_i]).cpu().numpy()
+        # the frame's one device -> host copy: out_f bits | enc | visible; a
+        # prefetch hook (System.track_stereo_prefetch) enqueues the next
+        # frame's upload and build behind the copy, before the host waits
+        cb, self.prefetch_cb = self.prefetch_cb, None
+        out, built = pull_after(torch.cat([out_f.view(torch.int32), out_i]), cb)
+        if cb is not None:
+            self.prefetch_result = built
         f = out[:30].view(np.float32)
         nm1, nin1, nin2 = int(f[12]), int(f[13]), int(f[14])
         if nm1 < 20 or nin1 < self.cfg.tracking.min_inliers_track:
@@ -799,8 +809,11 @@ class Tracking:
         self.velocity = (_mat(R_c, t_c) @ np.linalg.inv(_mat(R_l, t_l))).astype(np.float32)
 
     def _need_new_keyframe(self, frame: Frame, frame_id: int) -> bool:
-        """NeedNewKeyFrame with mapping always idle; monocular input has no
-        close-point trigger and a stricter tracked-ratio gate."""
+        """NeedNewKeyFrame. Monocular input has no close-point trigger and a
+        stricter tracked-ratio gate. Synchronous mapping is always idle; an
+        async worker that is busy vetoes the min-frames trigger, and when
+        another trigger fires it aborts the worker's local BA and lets
+        stereo or RGB-D insert while fewer than 3 keyframes are queued."""
         if self.ref_kf < 0:
             return False
         n_kf = self.map.n_kf
@@ -820,13 +833,23 @@ class Tracking:
         need_close = tracked_close < 100 and untracked_close > 70
         frames_since = frame_id - self.last_kf_frame_id
         inl = self.n_inliers_last
+        lm = self.local_mapper
+        mapping_idle, queue_len = True, 0
+        if lm is not None and lm.async_mode:
+            queue_len = len(lm.queue)
+            mapping_idle = lm.idle()
         c1a = frames_since >= self.cfg.tracking.max_frames_between_kf
-        c1b = frames_since >= self.cfg.tracking.min_frames_between_kf
+        c1b = frames_since >= self.cfg.tracking.min_frames_between_kf and mapping_idle
         mono = self.sensor == "mono"
         c1c = not mono and (inl < n_ref * 0.25 or need_close)
         th_ratio = 0.9 if mono else (0.75 if n_kf >= 2 else 0.4)
         c2 = (inl < n_ref * th_ratio or need_close) and inl > 15
-        return bool((c1a or c1b or c1c) and c2)
+        if not ((c1a or c1b or c1c) and c2):
+            return False
+        if mapping_idle:
+            return True
+        lm.abort_ba = True
+        return not mono and queue_len < 3
 
     def _create_new_keyframe(self, frame: Frame, frame_id: int, timestamp: float):
         """CreateNewKeyFrame: promote the frame and spawn map points for the

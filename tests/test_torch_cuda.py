@@ -362,3 +362,85 @@ def test_flat_gba_on_cuda_matches_cpu_and_repeats(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(g1, g2)), "repeatable on the card"
     assert (cpu[0] - g1[0]).abs().max() < 1e-5 and (cpu[1] - g1[1]).abs().max() < 1e-4
     assert (cpu[2] - g1[2]).abs().max() < 1e-3
+
+
+def test_async_streams_have_priorities(cuda_device):
+    """The lane's stream at the card's highest priority, the mapping and
+    global-BA streams at its lowest; none is the default stream."""
+    from orb_slam2_2021_tpu_torch.pipeline.streams import DeviceStreams
+
+    low, high = torch.cuda.Stream.priority_range()
+    st = DeviceStreams(cuda_device).streams
+    assert st["lane"].priority == high and st["mapping"].priority == low and st["gba"].priority == low
+    default = torch.cuda.default_stream(cuda_device)
+    ids = {s.cuda_stream for s in st.values()}
+    assert len(ids) == 3 and default.cuda_stream not in ids
+
+
+def _kernel_streams(prof, tmp_path, name):
+    """The stream ids of the CUDA kernels in a profiler trace."""
+    import json
+
+    path = tmp_path / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.load(open(path))["traceEvents"]
+    return [e["args"]["stream"] for e in events
+            if e.get("cat") == "kernel" and "stream" in e.get("args", {})]
+
+
+def test_async_drive_launches_nothing_on_the_default_stream(cuda_device, tmp_path):
+    """Under the profiler: a kernel launched on the default stream shows
+    that stream's id; an async stereo drive (lane, mapping worker) then
+    launches every kernel on other streams, and hamming_best2 counts its
+    launches on both threads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    with profile(activities=[ProfilerActivity.CUDA]) as probe:
+        torch.ones(64, device=cuda_device).add_(1)
+        torch.cuda.synchronize()
+    default_ids = set(_kernel_streams(probe, tmp_path, "probe"))
+    assert default_ids, "the probe kernel was traced"
+
+    cfg = synthetic_config(320, 240)
+    world = SyntheticStereoWorld(cfg, seed=3)
+    frames = [world.render(R, t) for R, t in forward_trajectory(16, step=0.12)]
+    sys_ = System(cfg, async_mode=True, enable_loop_closing=False, device=cuda_device)
+    tham.HAMMING_BEST2_KERNEL.reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, (l, r) in enumerate(frames):
+            assert sys_.track_stereo(l, r, timestamp=0.1 * i) is not None
+        sys_.shutdown()
+    streams = _kernel_streams(prof, tmp_path, "drive")
+    assert streams and not default_ids & set(streams), "a kernel ran on the default stream"
+    by_thread = dict(tham.HAMMING_BEST2_KERNEL.launches_by_thread)
+    assert by_thread.get("MainThread", 0) > 0 and by_thread.get("mapping", 0) > 0, by_thread
+    assert not sys_.map.check_invariants()
+
+
+def test_cold_build_from_two_threads_gives_one_library(cuda_device, tmp_path, monkeypatch):
+    """Two threads reaching a kernel that is not built yet: one nvcc run,
+    one library, the same launcher in both."""
+    import threading
+
+    from orb_slam2_2021_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    compiles, real = [], cuda_build._compile
+    monkeypatch.setattr(cuda_build, "_compile", lambda *a: (compiles.append(a), real(*a)))
+    kernel = cuda_build.CudaKernel("hamming.cu", tham.HAMMING_BEST2_KERNEL.symbol,
+                                   tham.HAMMING_BEST2_KERNEL.argtypes)
+    barrier, got = threading.Barrier(2), []
+
+    def build():
+        barrier.wait()
+        got.append(kernel.build())
+
+    threads = [threading.Thread(target=build) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert len(compiles) == 1 and len(got) == 2 and got[0] is got[1]
+    assert len([p for p in tmp_path.iterdir() if p.suffix == ".so"]) == 1

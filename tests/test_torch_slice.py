@@ -173,19 +173,23 @@ def test_unported_modes_raise():
     """The reference's defaults construct (place recognition from the
     packaged vocabulary, loop closing on), as does a given PlaceRecognition;
     the RGB-D and monocular Systems and localization mode construct and
-    run; async mode and the dense local BA still raise."""
+    run; async mode starts its worker only with mapping on (as in the
+    reference); the dense local BA still raises."""
     from orb_slam2_2021_tpu_torch.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
     from orb_slam2_2021_tpu_torch.place.vocab import BinaryVocabulary
 
     cfg = synthetic_config(width=320, height=240)
-    for kwargs in ({"async_mode": True}, {"enable_mapping": False, "async_mode": True},
-                   {"enable_mapping": False, "sensor": "mono", "async_mode": True},
-                   {"enable_loop_closing": False, "async_mode": True},
-                   {"cfg": cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False))}):
-        kwargs = dict(kwargs)
-        with pytest.raises(NotImplementedError) as err:
-            TSystem(kwargs.pop("cfg", cfg), device="cpu", **kwargs)
-        assert "ROADMAP.md" in str(err.value)
+    for kwargs, worker in (({"async_mode": True}, True),
+                           ({"enable_mapping": False, "async_mode": True}, False),
+                           ({"enable_mapping": False, "sensor": "mono", "async_mode": True}, False),
+                           ({"enable_loop_closing": False, "async_mode": True}, True)):
+        started = TSystem(cfg, device="cpu", **kwargs)
+        assert started.async_mode == worker and (started._worker is not None) == worker
+        started.shutdown()
+        assert started._worker is None or not started._worker.is_alive()
+    with pytest.raises(NotImplementedError) as err:
+        TSystem(cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False)), device="cpu")
+    assert "ROADMAP.md" in str(err.value)
     with pytest.raises(ValueError):
         TSystem(cfg, sensor="lidar", device="cpu")
     sys_ = TSystem(cfg, device="cpu")
