@@ -72,8 +72,29 @@ Phases (any failure exits nonzero before the result lines are printed):
      and the monocular one over the first TUM frames: tracked, mapped,
      invariants clean, threads joined;
  18. trace a stretch of a fresh async drive of the orbit with torch.profiler:
-     the device busy share and the kernels per stream.
+     the device busy share and the kernels per stream (run last, after
+     phases 19-22, since the trace slows what follows it in the process);
+ 19. the dense local BA (use_cg_local_ba=False) of the last keyframe's
+     window of phase 8's map at the static shapes (C=128, P=4096,
+     O=32768, Q=8): the card against the CPU path, its eigenproblem in
+     float32 and float64 on both, device time and launches per solve;
+ 20. drive System(kitti_stereo_config()) with the dense local BA, mapping
+     on and loop closing off, over phase 8's frames: tracking, keyframes,
+     local BA solves, ATE, ms per solve beside phase 8's CG solves;
+ 21. the landmark-sharded global BA at world size 1 under NCCL: three
+     iterations of make_dist_gba_iteration against gba_iteration on a
+     corridor problem the size of SCALE_1500KF.json (1,442 keyframes,
+     487,556 points, 570,794 observations), then make_dist_ba against
+     ba_solve at the dense local-BA shape; ms per iteration, the one-hot's
+     bytes, peak memory;
+ 22. two ranks on the card (gloo): scripts/torch_dist_live_2proc.py, rank 0
+     the default sync System over phase 11's orbit with a GbaClient, rank 1
+     a GbaServer: the loop at phase 11's pair and frame, the server's solve
+     written back, ATE.
 
+The run's order differs from the numbering: phase 22 runs in processes of
+its own while the main process holds the CUDA-vs-CPU checks of phases 4,
+7, 10 and 14 (which report no times), after phase 21; phase 18 runs last.
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -137,13 +158,35 @@ REF_CLOSE = {"tracked": 60, "kf_frames": [0, 14, 16, 20, 25, 31, 37, 43, 49, 55]
 # frames (keyframes at 0, 14 and 16), monocular over the first TUM frames
 ASYNC_SENSOR_FRAMES = 20
 # phase 18: a fresh async System over the orbit's first frames, the last of
-# them traced by torch.profiler for the busy share; last in the run because
-# the trace slows whatever runs after it in the process
+# them traced by torch.profiler for the busy share; last in the run (after
+# phases 19-22) because the trace slows whatever runs after it in the process
 ASYNC_PROFILE_FRAMES = (12, 18)
+# phases 19-21: the dense local BA's static shapes at kitti_stereo_config()
+# (64 + 64 cameras, 4096 points, 32768 observations, 8 per point)
+DENSE_C, DENSE_P, DENSE_O, DENSE_Q = 128, 4096, 32768, 8
+DENSE_POSE_TOL = 1e-3      # card vs CPU: rotation entries and m
+DENSE_POINT_TOL = 1e-2     # m, 99th percentile over the window's points
+DENSE_INLIER_AGREE = 0.99  # share of observations with the same inlier flag
+DENSE_PERTURB = 0.03       # m: phase 19's start, off phase 8's solved window
+# phase 21: the size of SCALE_1500KF.json (scripts/scale_1500kf.py, about
+# KITTI 00): keyframes, points, observations; three LM iterations as there
+SCALE_KF, SCALE_PTS, SCALE_OBS, SCALE_ITERS = 1442, 487556, 570794, 3
+# the sharded step at world size 1 must equal gba_iteration on the same
+# shard exactly; against the flat layout (1,048,576 observation slots
+# against one shard's 570,880) only the order of the one-hot sums differs,
+# and 24 PCG iterations on a 721 m chain of cameras carry that rounding
+# into the poses (first chip run: t 0.154 m, R 2.2e-4, costs 2.6e-4): R and
+# the costs are bounded, the rest reported
+SCALE_TOL = {"R": 1e-3, "cost": 1e-3}
+LIVE_TIMEOUT_S = 480       # phase 22, both ranks
+
+
+T_START = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run's log, behind the seconds since the start."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def card_info() -> str:
@@ -480,15 +523,21 @@ def render_orbit():
     return frames, gt
 
 
-def drive_kitti_mapping(dev, frames, gt):
+def drive_kitti_mapping(dev, frames, gt, dense=False):
     """Mapping on at KITTI width over the first N_MAP_FRAMES frames of the
     bench's orbit in the cylinder world; Hamming launches from the mapping
-    units are counted apart from the lane's."""
+    units are counted apart from the lane's. `dense`: the dense local BA
+    (use_cg_local_ba=False, phase 20)."""
+    import dataclasses
+
     from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
     from orb_slam2_2021_tpu_torch.pipeline.system import System
 
     cfg = kitti_stereo_config()
+    if dense:
+        cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False))
+    label = "kitti dense-BA mapping drive" if dense else "kitti mapping drive"
     frames, gt = frames[:N_MAP_FRAMES], gt[:N_MAP_FRAMES]
     sys_ = System(cfg, enable_mapping=True, enable_loop_closing=False, device=dev)
 
@@ -521,7 +570,7 @@ def drive_kitti_mapping(dev, frames, gt):
     n_created = int(sys_.map.next_mp)
     n_init = int((sys_.map.mp_first_kf == 0).sum())
     occ = int((sys_.occupancy_grid().data == 100).sum())
-    log(f"kitti mapping drive {cfg.width}x{cfg.height}: {tracked}/{N_MAP_FRAMES} tracked, "
+    log(f"{label} {cfg.width}x{cfg.height}: {tracked}/{N_MAP_FRAMES} tracked, "
         f"{sys_.map.n_kf} live keyframes ({sys_.map.next_kf} created), "
         f"{len(ba_ms)} local BA solves, {sys_.map.next_mp} map points created "
         f"({int(sys_.map.mp_valid.sum())} live), {occ} occupied grid cells, "
@@ -529,7 +578,7 @@ def drive_kitti_mapping(dev, frames, gt):
     log(f"per-frame ms (host clock): median {np.median(ms):.2f}, median over keyframe frames "
         f"{np.median(ms_kf):.2f}, max {ms.max():.2f}")
     log(f"ms_mapping per keyframe frame: {[round(x, 2) for x in ms_map]}")
-    log(f"local BA ms per solve (15 LM iterations, ends in the device->host read): "
+    log(f"{label}: local BA ms per solve (15 LM iterations, ends in the device->host read): "
         f"{[round(x, 2) for x in ba_ms]}")
     log(f"hamming_best2 launches: {launches} in the drive, {counts['mapping']} from the mapping "
         f"units over {counts['keyframes']} keyframes "
@@ -552,7 +601,8 @@ def drive_kitti_mapping(dev, frames, gt):
     if matrix_launches != 0:
         raise AssertionError(f"the mapping drive launched hamming_matrix {matrix_launches} times")
     return {"launches": launches, "mapping_launches": counts["mapping"],
-            "keyframes": counts["keyframes"], "matrix_launches": matrix_launches}
+            "keyframes": counts["keyframes"], "matrix_launches": matrix_launches,
+            "ba_ms": ba_ms, "system": sys_}
 
 
 def _sim3_matches(rng, n=500):
@@ -1696,6 +1746,317 @@ def profile_async_stretch(dev, frames):
     return busy
 
 
+def _kernels_in(fn):
+    """(result, kernel launches, summed kernel ms) of one call, by
+    torch.profiler with CUDA activity."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, len(kern), sum(e.device_time_total for e in kern) / 1e3
+
+
+def _event_ms(fn):
+    """(result, ms between CUDA events around one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _dense_cfg():
+    import dataclasses
+
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+
+    cfg = kitti_stereo_config()
+    return cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False))
+
+
+def check_dense_ba_unit(dev, mapped):
+    """Phase 19: the dense local BA (make_local_ba) of the last keyframe's
+    window of phase 8's map, at the static shapes, on the card against the
+    CPU path; the eigenproblem in float32 and in float64 on both; device
+    time by CUDA events and launches per solve by torch.profiler. Phase 8
+    has already solved that window, so its free poses and its points start
+    perturbed (seeded: DENSE_PERTURB m)."""
+    from orb_slam2_2021_tpu_torch.convert import camera_from_config
+    from orb_slam2_2021_tpu_torch.optim import ba as tba
+    from orb_slam2_2021_tpu_torch.optim.assemble import upload_problem
+    from orb_slam2_2021_tpu_torch.pipeline.local_mapping import LocalMapping
+
+    cfg = _dense_cfg()
+    ocfg = cfg.optim
+    m = mapped.map
+    k = int(np.nonzero(m.kf_valid)[0].max())
+    with m.lock:
+        window = LocalMapping(cfg, m, "cpu")._local_ba_window(k)
+    if window is None:
+        raise AssertionError(f"keyframe {k} of phase 8's map has no local BA window")
+    prob_h, cams, cam_free, mp = window[:4]
+    rng = np.random.default_rng(19)
+    free = prob_h.cam_free
+    t0 = prob_h.t.copy()
+    t0[free] += rng.normal(0, DENSE_PERTURB, (int(free.sum()), 3))
+    xw0 = prob_h.xw.copy()
+    xw0[: len(mp)] += rng.normal(0, DENSE_PERTURB, (len(mp), 3))
+    prob_h = prob_h._replace(t=t0.astype(np.float32), xw=xw0.astype(np.float32))
+    shape = (prob_h.R.shape[0], prob_h.xw.shape[0], prob_h.obs_cam.shape[0], prob_h.pt_obs.shape[1])
+    if shape != (DENSE_C, DENSE_P, DENSE_O, DENSE_Q):
+        raise AssertionError(f"dense window padded to {shape}")
+    n_obs = int(prob_h.obs_valid.sum())
+    cam = camera_from_config(cfg)
+    solve = tba.make_local_ba(ocfg)
+    gpu, cpu = upload_problem(prob_h, dev), upload_problem(prob_h, "cpu")
+
+    def step(p):
+        lam = torch.tensor(ocfg.lm_lambda_init, dtype=torch.float32, device=p.R.device)
+        return tba._lm_step(cam, p, p.R, p.t, p.xw, p.obs_valid.float(), lam, True, ocfg)[:3]
+
+    default = tba.EIG_DTYPE
+    res = {}
+    try:
+        for dt in (torch.float32, torch.float64):
+            tba.EIG_DTYPE = dt
+            name = str(dt).split(".")[-1]
+            res[name] = {"step_cuda": [x.cpu().numpy() for x in step(gpu)],
+                         "step_cpu": [x.numpy() for x in step(cpu)],
+                         "cpu": [x.numpy() for x in solve(cam, cpu)]}
+            solve(cam, gpu)  # warm
+            out, ms = _event_ms(lambda: solve(cam, gpu))
+            res[name]["cuda"] = [x.cpu().numpy() for x in out]
+            res[name]["ms"] = ms
+        tba.EIG_DTYPE = default
+        _, launches, kernel_ms = _kernels_in(lambda: solve(cam, gpu))
+    finally:
+        tba.EIG_DTYPE = default
+
+    nc, npt = len(cams), len(mp)
+
+    def diffs(a, b):
+        dR = float(np.abs(a[0][:nc] - b[0][:nc]).max())
+        dt = float(np.abs(a[1][:nc] - b[1][:nc]).max())
+        dx = np.abs(a[2][:npt] - b[2][:npt]).max(axis=1)
+        return dR, dt, float(np.percentile(dx, 99)), float(dx.max())
+
+    ref = res["float64"]["cpu"]
+    log(f"phase 19, dense local BA of keyframe {k}'s window: {nc} cameras ({int(cam_free.sum())} free), "
+        f"{npt} points, {n_obs} observations, padded to C={DENSE_C}, P={DENSE_P}, O={DENSE_O}, "
+        f"Q={DENSE_Q}; default eigenproblem dtype {str(default).split('.')[-1]}")
+    for name in ("float32", "float64"):
+        r = res[name]
+        sc, sp = diffs(r["step_cuda"], res["float64"]["step_cpu"]), diffs(r["step_cpu"], res["float64"]["step_cpu"])
+        log(f"phase 19 eigh {name}: first step, card vs CPU float64 (R, t m, xw p99 m, xw max m) {sc}; "
+            f"CPU {name} vs CPU float64 {sp}")
+        cu, cp = diffs(r["cuda"], ref), diffs(r["cpu"], ref)
+        agree_cu = float((r["cuda"][3] == ref[3])[prob_h.obs_valid].mean())
+        log(f"phase 19 eigh {name}: solve, card vs CPU float64 {cu}, inlier flags agreeing "
+            f"{agree_cu:.5f}; CPU {name} vs CPU float64 {cp}; card solve {r['ms']:.2f} ms (CUDA events)")
+    card, host = res[str(default).split(".")[-1]]["cuda"], res[str(default).split(".")[-1]]["cpu"]
+    dR, dt, dx99, _ = diffs(card, host)
+    agree = float((card[3] == host[3])[prob_h.obs_valid].mean())
+    moved = float(np.abs(host[1][:nc] - prob_h.t[:nc]).max())
+    log(f"phase 19 default dtype, card vs CPU: R {dR:.2e}, t {dt:.2e} m, points p99 {dx99:.2e} m "
+        f"(tolerances {DENSE_POSE_TOL}, {DENSE_POSE_TOL} m, {DENSE_POINT_TOL} m), inlier flags agreeing "
+        f"{agree:.5f} (bound {DENSE_INLIER_AGREE}); the solve moved the cameras by up to {moved:.4f} m; "
+        f"{launches} kernel launches and {kernel_ms:.2f} ms of kernel time per solve (torch.profiler)")
+    if not (dR < DENSE_POSE_TOL and dt < DENSE_POSE_TOL and dx99 < DENSE_POINT_TOL):
+        raise AssertionError("the dense local BA on the card disagrees with the CPU path")
+    if agree < DENSE_INLIER_AGREE:
+        raise AssertionError(f"inlier flags agree at {agree:.4f}")
+    return {"ms_float32": res["float32"]["ms"], "ms_float64": res["float64"]["ms"],
+            "launches": launches, "kernel_ms": kernel_ms}
+
+
+def check_dist_gba(dev):
+    """Phase 21: world size 1 under NCCL. Three iterations of the sharded
+    global-BA step (make_dist_gba_iteration) against gba_iteration on a
+    corridor problem at SCALE_1500KF.json's size, then make_dist_ba against
+    ba_solve at the local-BA shape; ms per iteration and the one-hot's
+    bytes."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.convert import camera_from_config
+    from orb_slam2_2021_tpu_torch.optim.assemble import global_problem_shapes, upload_problem
+    from orb_slam2_2021_tpu_torch.optim.ba import ba_solve
+    from orb_slam2_2021_tpu_torch.optim.ba_cg import flat_index, gba_iteration
+    from orb_slam2_2021_tpu_torch.parallel.corridor import corridor_problem
+    from orb_slam2_2021_tpu_torch.parallel.dist_ba import (make_dist_ba, make_dist_gba_iteration,
+                                                           shard_ba_problem, upload_shard)
+    from orb_slam2_2021_tpu_torch.parallel.multihost import init_process
+
+    cfg = kitti_stereo_config()
+    ocfg, cam = cfg.optim, camera_from_config(cfg)
+    n_kf, n_pts, n_obs = SCALE_KF, SCALE_PTS, SCALE_OBS
+    shapes = global_problem_shapes(n_kf, n_pts, n_obs)
+    t0 = time.perf_counter()
+    prob, *_ = corridor_problem(cam, n_kf, n_pts, n_obs, seed=0, window=8, C_pad=shapes[0],
+                                P_pad=shapes[1], O_pad=shapes[2])
+    packed = shard_ba_problem(prob, 1)
+    log(f"phase 21, corridor problem {n_kf} keyframes, {n_pts} points, {n_obs} observations "
+        f"(padded {shapes}; one shard: {packed.obs_cam.shape[0]} observation slots) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        group, _ = init_process(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        try:
+            backend = dist.get_backend(group)
+            if backend != "nccl":
+                raise AssertionError(f"world size 1 on the card ran {backend}, not NCCL")
+            torch.cuda.reset_peak_memory_stats(dev)
+            dstep = make_dist_gba_iteration(ocfg, cam, group)
+            runs = {}
+            # the flat layout of _run_global_ba's single-process path; then
+            # one shard, by gba_iteration and by the sharded step
+            for name in ("flat", "shard", "sharded"):
+                if name != "sharded":
+                    p = upload_problem(prob, dev) if name == "flat" else upload_shard(packed, 0, 1, dev)
+                    index = flat_index(p)
+                step = dstep if name == "sharded" else (lambda *a: gba_iteration(cam, *a, ocfg))
+                R, t, xw, lam = p.R, p.t, p.xw, torch.tensor(ocfg.lm_lambda_init, device=dev)
+                active = p.obs_valid.float()
+                ms, costs = [], []
+                for _ in range(SCALE_ITERS):
+                    (R, t, xw, lam, cost), dt_ms = _event_ms(
+                        lambda: step(p, index, R, t, xw, lam, active, True))
+                    ms.append(dt_ms)
+                    costs.append(float(cost))
+                runs[name] = {"R": R.cpu().numpy(), "t": t.cpu().numpy(), "xw": xw.cpu().numpy(),
+                              "lam": float(lam), "ms": ms, "costs": costs,
+                              "onehot_bytes": index.onehot.numel() * index.onehot.element_size()}
+                if name == "flat":
+                    del p, index
+                del R, t, xw, active
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            a, b, f = runs["sharded"], runs["shard"], runs["flat"]
+            exact = all(np.array_equal(a[k], b[k]) for k in ("R", "t", "xw", "costs")) and a["lam"] == b["lam"]
+            dR = float(np.abs(a["R"] - f["R"]).max())
+            dt = float(np.abs(a["t"] - f["t"]).max())
+            dx = float(np.percentile(np.abs(a["xw"][:n_pts] - f["xw"][:n_pts]).max(axis=1), 99))
+            dc = max(abs(x - y) / y for x, y in zip(a["costs"], f["costs"]))
+            moved = float(np.abs(a["t"][:n_kf] - prob.t[:n_kf]).max())
+            for name, r in runs.items():
+                log(f"phase 21 {name} ({backend + ' group' if name == 'sharded' else 'gba_iteration'}): "
+                    f"ms per iteration (CUDA events) {[round(x, 2) for x in r['ms']]}, costs "
+                    f"{[round(x, 1) for x in r['costs']]}, one-hot {r['onehot_bytes'] / 1e9:.3f} GB")
+            log(f"phase 21 sharded step vs gba_iteration on the same shard: identical {exact}; against "
+                f"the flat layout after {SCALE_ITERS} iterations (the same sums in another order): R "
+                f"{dR:.2e}, t {dt:.2e} m (cameras moved up to {moved:.3f} m), points p99 {dx:.2e} m, "
+                f"costs {dc:.2e} relative, lambda {a['lam']} / {f['lam']} (bounds {SCALE_TOL}); peak "
+                f"device memory {peak_gb:.2f} GB")
+            if not exact:
+                raise AssertionError("the sharded step at world size 1 differs from gba_iteration")
+            if not (dR < SCALE_TOL["R"] and dc < SCALE_TOL["cost"] and a["lam"] == f["lam"]):
+                raise AssertionError("the sharded global BA disagrees with the flat layout's")
+            if not a["costs"][-1] < a["costs"][0]:
+                raise AssertionError("the global BA did not lower the cost")
+
+            # make_dist_ba against ba_solve at the local-BA shape: on the
+            # same shard exactly, and beside the padded layout
+            lp, *_ = corridor_problem(cam, DENSE_C, DENSE_P, 24000, seed=1, window=DENSE_Q - 1,
+                                      n_fixed=DENSE_C // 2, O_pad=DENSE_O)
+            shard = upload_shard(shard_ba_problem(lp, 1), 0, 1, dev)
+            iters = (ocfg.local_ba_iters1, ocfg.local_ba_iters2)
+            (R1, t1, x1, i1), ms_solve = _event_ms(lambda: ba_solve(cam, shard, ocfg, *iters))
+            (R2, t2, x2, i2), ms_dist = _event_ms(lambda: make_dist_ba(ocfg, group)(cam, shard))
+            R3, t3, x3, i3 = ba_solve(cam, upload_problem(lp, dev), ocfg, *iters)
+            same = all(torch.equal(u, v) for u, v in ((R1, R2), (t1, t2), (x1, x2), (i1, i2)))
+            n = int(lp.obs_valid.sum())
+            d = [float((R2 - R3).abs().max()), float((t2 - t3).abs().max()),
+                 float(torch.quantile((x2 - x3).abs().amax(dim=1), 0.99))]
+            flags = bool(torch.equal(i2[:n], i3[:n]))
+            log(f"phase 21 make_dist_ba vs ba_solve at C={DENSE_C}, P={DENSE_P}, O={DENSE_O} ({n} "
+                f"observations): identical on the same shard {same}; against the padded layout R, t, "
+                f"points p99 differ by {d}, inlier flags identical {flags}; {ms_dist:.2f} ms against "
+                f"{ms_solve:.2f} ms (CUDA events)")
+            if not (same and flags):
+                raise AssertionError("make_dist_ba disagrees with ba_solve")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"ms_flat": runs["flat"]["ms"], "ms_shard": runs["shard"]["ms"], "ms_sharded": runs["sharded"]["ms"],
+            "onehot_gb": runs["sharded"]["onehot_bytes"] / 1e9, "peak_gb": peak_gb}
+
+
+def start_dist_live(frames, gt, device="cuda", config="kitti"):
+    """Phase 22, started: scripts/torch_dist_live_2proc.py at KITTI width
+    over the orbit of phase 11 in a process group of its own (rank 0 the
+    default sync System with a GbaClient, rank 1 a GbaServer, both on this
+    card). Returns what finish_dist_live needs."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    path = os.path.join(tmp, "frames.npz")
+    np.savez(path, frames=np.asarray(frames, np.uint8), gt_R=np.asarray([R for R, _ in gt]),
+             gt_t=np.asarray([t for _, t in gt]))
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_dist_live_2proc.py"), "--device",
+           device, "--config", config, "--frames-file", path, "--no-ref", "--out",
+           os.path.join(tmp, "out")]
+    log("phase 22 started: two ranks in processes of their own")
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True, cwd=REPO)
+    return p, tmp, time.perf_counter()
+
+
+def stop_dist_live(started):
+    """Kill phase 22's process group if it still runs; remove its files."""
+    import shutil
+    import signal
+
+    p, tmp, _ = started
+    if p.poll() is None:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def finish_dist_live(started, sync_ms):
+    """Phase 22, joined: the loop must fire at the reference's pair and
+    frame, the server solve, the leader write back, and ATE stay within
+    bound. The caller stops the group (stop_dist_live) whatever happens."""
+    p, tmp, t0 = started
+    try:
+        stdout, _ = p.communicate(timeout=max(1.0, LIVE_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the two-rank live drive outlived {LIVE_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if p.returncode != 0 or not stdout.strip():
+        logs = ""
+        for role in ("leader", "server"):
+            lp = os.path.join(tmp, "out", f"{role}.log")
+            if os.path.exists(lp):
+                logs += f"\n{role}: " + open(lp).read()[-2000:]
+        raise AssertionError(f"two-rank live drive failed (exit {p.returncode}):\n{stdout[-3000:]}{logs}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    lead, srv = res["leader"], res["server"]
+    loop = lead["loops"][0] if lead["loops"] else None
+    written = [g for g in lead["gba_runs"] if g["outcome"] == "written"]
+    log(f"phase 22, two ranks ({lead['backend']}, one card): leader {lead['n_ok']}/{lead['n_frames']} tracked, "
+        f"{lead['n_kf']} keyframes, loops {lead['loops']} (phase 11 and the JAX reference: frame "
+        f"{REF_LOOP_FRAME}, keyframe {REF_LOOP_PAIR[0]} against {REF_LOOP_PAIR[1]}), global BA runs "
+        f"{lead['gba_runs']}, ms per GBA iteration {[round(x, 1) for x in lead['gba_iter_ms']]}; server "
+        f"solved {srv['solved']}; ATE {lead['ate']:.4f} m over {lead['length']:.3f} m; leader median "
+        f"{lead['ms_median']:.2f} ms per frame (sync phase 11: {np.median(sync_ms):.2f}; this one ran "
+        f"beside the CUDA-vs-CPU checks); {wall:.1f} s in all")
+    _check_drive_launches("two-rank live drive", lead["hamming_best2_launches"], lead["hamming_matrix_launches"])
+    if not res["ok"]:
+        raise AssertionError("the two-rank live drive's own checks failed")
+    if loop is None or (loop[1], loop[2]) != REF_LOOP_PAIR or abs(loop[0] - REF_LOOP_FRAME) > 5:
+        raise AssertionError(f"loop {loop} is not the reference's pair {REF_LOOP_PAIR} near frame {REF_LOOP_FRAME}")
+    if srv["solved"] < 1 or not written:
+        raise AssertionError("the server solved nothing or nothing was written back")
+    if not lead["ate"] < 0.05 * lead["length"]:
+        raise AssertionError(f"ATE {lead['ate']:.4f} m is not below 5% of {lead['length']:.3f} m")
+    return {"launches": lead["hamming_best2_launches"], "matrix_launches": lead["hamming_matrix_launches"]}
+
+
 def _best2_by_thread():
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
 
@@ -1723,15 +2084,12 @@ def main():
     log(f"built {HAMMING_KERNEL.source} in {time.perf_counter() - t0:.2f} s")
 
     max_err, times = check_hamming(dev)
-    check_small_against_cpu(dev)
     lane = drive_kitti(dev)
     err, mapping_times = check_hamming_mapping_shapes(dev)
     max_err = max(max_err, err)
     times.update(mapping_times)
-    check_mapping_small_against_cpu(dev)
     mapping = drive_kitti_mapping(dev, frames, gt)
     unit_ms = check_loop_numerics(dev)
-    check_reloc_small_against_cpu(dev)
     loop = drive_kitti_default(dev, frames, gt)
     err, loop_times = check_hamming_loop_shapes(dev, loop["shapes"])
     max_err = max(max_err, err)
@@ -1742,7 +2100,6 @@ def main():
     loc = drive_localization(dev, rgbd_sys, tum_frames, tum_gt, rgbd)
     del rgbd_sys
     mono = drive_tum_mono(dev, tum_frames, tum_gt, sensor_shapes)
-    check_sensors_small_against_cpu(dev)
     unit_ms["two_view_init_256x2000"] = check_two_view(dev)
     err, sensor_times = check_hamming_sensor_shapes(dev, sensor_shapes, loop["shapes"])
     max_err = max(max_err, err)
@@ -1750,10 +2107,32 @@ def main():
     bench = drive_async_bench(dev, frames, gt, loop["ms"])
     close = drive_tum_close(dev, close_frames, close_gt)
     async_sensors = drive_async_sensors(dev, close_frames, tum_frames)
+    dense_unit = check_dense_ba_unit(dev, mapping.pop("system"))
+    dense = drive_kitti_mapping(dev, frames, gt, dense=True)
+    dense.pop("system")
+    log(f"phase 20 dense local BA ms per solve {[round(x, 2) for x in dense['ba_ms']]} beside phase 8's "
+        f"CG solves {[round(x, 2) for x in mapping['ba_ms']]}; phase 19 unit: {dense_unit}")
+    scale = check_dist_gba(dev)
+    log(f"phase 21: {scale}")
+    # phase 22's two ranks run in processes of their own while this one
+    # holds the CUDA drives of phases 4, 7, 10 and 14 against the CPU path,
+    # which report no times, on half of the CPU threads
+    started = start_dist_live(frames, gt)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        check_small_against_cpu(dev)
+        check_mapping_small_against_cpu(dev)
+        check_reloc_small_against_cpu(dev)
+        check_sensors_small_against_cpu(dev)
+        live = finish_dist_live(started, loop["ms"])
+    finally:
+        stop_dist_live(started)
+        torch.set_num_threads(threads)
     profile_async_stretch(dev, frames)
 
     log(f"plain PyTorch loop-closing units on the card (ms): {json.dumps(unit_ms)}")
-    log(f"card: {info}")
+    print(f"card: {info}", flush=True)
     common = {"route": "cuda", "source": "orb_slam2_2021_tpu_torch/csrc/hamming.cu",
               "replaces": "orb_slam2_2021_tpu/ops/hamming_pallas.py:37", "max_abs_err": max_err}
     kernels = []
@@ -1769,7 +2148,9 @@ def main():
             "launches_async_bench_by_thread": bench["launches_by_thread"],
             "launches_close_rgbd_drive": close["launches"],
             "launches_async_rgbd_drive": async_sensors["rgbd"]["launches"],
-            "launches_async_mono_drive": async_sensors["mono"]["launches"]}),
+            "launches_async_mono_drive": async_sensors["mono"]["launches"],
+            "launches_dense_mapping_drive": dense["launches"],
+            "launches_dist_live_drive": live["launches"]}),
             ("hamming_matrix", {  # no main-path caller is left: each drive asserts 0
                 "launches": loop["matrix_launches"],
                 "launches_mapping_drive": mapping["matrix_launches"],
@@ -1780,7 +2161,9 @@ def main():
                 "launches_async_bench_drive": bench["matrix_launches"],
                 "launches_close_rgbd_drive": close["matrix_launches"],
                 "launches_async_rgbd_drive": async_sensors["rgbd"]["matrix_launches"],
-                "launches_async_mono_drive": async_sensors["mono"]["matrix_launches"]})):
+                "launches_async_mono_drive": async_sensors["mono"]["matrix_launches"],
+                "launches_dense_mapping_drive": dense["matrix_launches"],
+                "launches_dist_live_drive": live["matrix_launches"]})):
         head = times["lane"][name]  # the local-point search's shape, 4096 x 2000
         kernels.append({"name": name, **common, **launches,
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -16,6 +16,10 @@ In the flat layout observations are in any order; camera-side sums are
 again products with the [O, C] one-hot, and point-side sums gather each
 point's observations through a [P, Qmax] table (`FlatIndex`) and sum over
 Qmax. No float atomics either way, so the card repeats its solve exactly.
+The flat solver takes an optional process group (`parallel/dist_ba.py`):
+each rank then holds a landmark shard, and U, b_c, the Schur right-hand
+side, the correction inside each PCG product and the costs are
+all-reduced, the four places the reference psums over its mesh axis.
 
 Not ported (ROADMAP.md): `_cg_lm_step_pq` (reached only through the
 reference's `make_local_ba_cg_pq` / `make_lm_iteration_pq`, which the
@@ -30,32 +34,9 @@ import torch
 
 from ..geometry.se3 import se3_compose, se3_exp
 from ..xmath import smv, souter, stmv
-from .ba import BAProblem, _residual_chi2, _residual_jacobians, _total_cost
+from .ba import (BAProblem, _all_reduce, _cam_onehot, _damp, _delta2, _inv3x3, _residual_chi2,
+                 _residual_jacobians, _total_cost, classify_inliers)
 from .robust import huber_weight
-
-
-def _inv3x3(A):
-    """Closed-form (adjugate) batched 3x3 inverse."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    A11 = e * i - f * h
-    A12 = c * h - b * i
-    A13 = b * f - c * e
-    A21 = f * g - d * i
-    A22 = a * i - c * g
-    A23 = c * d - a * f
-    A31 = d * h - e * g
-    A32 = b * g - a * h
-    A33 = a * e - b * d
-    det = a * A11 + b * A21 + c * A31
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
-    adj = torch.stack([
-        torch.stack([A11, A12, A13], -1),
-        torch.stack([A21, A22, A23], -1),
-        torch.stack([A31, A32, A33], -1),
-    ], -2)
-    return adj * inv_det[..., None, None]
 
 
 def _inv6x6_spd(M):
@@ -93,20 +74,6 @@ def _chol3x3(A):
     ], -2)
 
 
-def _cam_onehot(prob: BAProblem):
-    """[O, C] float32 0/1 assignment matrix."""
-    C = prob.R.shape[0]
-    cams = torch.arange(C, dtype=prob.obs_cam.dtype, device=prob.obs_cam.device)
-    return ((prob.obs_cam[:, None] == cams[None, :]) & prob.obs_valid[:, None]).to(torch.float32)
-
-
-def _damp(H, lam, n: int):
-    """H + lam * max(diag H, 1e-6) on the diagonal + 1e-8 I."""
-    eye = torch.eye(n, dtype=H.dtype, device=H.device)
-    diag = torch.clamp_min(torch.diagonal(H, dim1=1, dim2=2), 1e-6)
-    return H + lam * eye[None] * diag[:, :, None] * eye[None] + 1e-8 * eye[None]
-
-
 def _cg_lm_step_rcs(cam, prob: BAProblem, onehot_pq, R, t, xw, active, lam,
                     use_huber: bool, cfg, cg_iters: int):
     """One damped LM step: build S = U_d - W V^-1 W^T ([6C, 6C]) once, run
@@ -117,9 +84,7 @@ def _cg_lm_step_rcs(cam, prob: BAProblem, onehot_pq, R, t, xw, active, lam,
     Q = O // P
 
     r, Jc, Jp, chi2, behind = _residual_jacobians(cam, prob, R, t, xw)
-    is_stereo = prob.obs_uvr[:, 2] >= 0
-    delta2 = torch.where(is_stereo, torch.full_like(chi2, cfg.chi2_stereo),
-                         torch.full_like(chi2, cfg.chi2_mono))
+    delta2 = _delta2(prob, chi2, cfg)
     wh = huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
     w = prob.obs_inv_sigma2 * wh * active
 
@@ -201,14 +166,6 @@ def _cg_lm_step_rcs(cam, prob: BAProblem, onehot_pq, R, t, xw, active, lam,
     return R_new, t_new, xw + delta_p, chi2, behind, delta2
 
 
-def classify_inliers(cam, prob: BAProblem, R, t, xw, cfg):
-    """obs_valid & chi2 <= delta^2 & in front of the camera."""
-    chi2, behind = _residual_chi2(cam, prob, R, t, xw)
-    delta2 = torch.where(prob.obs_uvr[:, 2] >= 0, torch.full_like(chi2, cfg.chi2_stereo),
-                         torch.full_like(chi2, cfg.chi2_mono))
-    return prob.obs_valid & (chi2 <= delta2) & ~behind
-
-
 def lm_chunk_pq(cam, prob: BAProblem, R, t, xw, lam, active, use_huber: bool,
                 cfg, n_iters: int):
     """`n_iters` LM iterations on a PQ-layout problem (the reference's
@@ -263,25 +220,23 @@ def _to_points(index: FlatIndex, x):
 
 
 def _blocks(cam, prob: BAProblem, index: FlatIndex, R, t, xw, active, lam,
-            use_huber: bool, cfg):
+            use_huber: bool, cfg, group=None):
     """Per-iteration block system: damped U, V^-1, per-observation W and the
-    gradients."""
+    gradients (U and b_c summed over the ranks of `group`)."""
     C = prob.R.shape[0]
     P = prob.xw.shape[0]
     O = prob.obs_cam.shape[0]
     r, Jc, Jp, chi2, behind = _residual_jacobians(cam, prob, R, t, xw)
-    is_stereo = prob.obs_uvr[:, 2] >= 0
-    delta2 = torch.where(is_stereo, torch.full_like(chi2, cfg.chi2_stereo),
-                         torch.full_like(chi2, cfg.chi2_mono))
+    delta2 = _delta2(prob, chi2, cfg)
     wh = huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
     w = prob.obs_inv_sigma2 * wh * active
     Jc = Jc * prob.cam_free[prob.obs_cam][:, None, None]
     Jcw = Jc * w[:, None, None]
     Jpw = Jp * w[:, None, None]
     oh_t = index.onehot.transpose(0, 1)
-    U = (oh_t @ souter(Jcw, Jc).reshape(O, 36)).reshape(C, 6, 6)
+    U = _all_reduce((oh_t @ souter(Jcw, Jc).reshape(O, 36)).reshape(C, 6, 6), group)
     V = _to_points(index, souter(Jpw, Jp).reshape(O, 9)).reshape(P, 3, 3)
-    b_c = oh_t @ stmv(Jcw, r)
+    b_c = _all_reduce(oh_t @ stmv(Jcw, r), group)
     b_p = _to_points(index, stmv(Jpw, r))
     Wcp = souter(Jcw, Jp)                                            # [O,6,3]
     U_d = _damp(U, lam, 6)
@@ -292,22 +247,25 @@ def _blocks(cam, prob: BAProblem, index: FlatIndex, R, t, xw, active, lam,
 
 
 def _cg_lm_step(cam, prob: BAProblem, index: FlatIndex, R, t, xw, active, lam,
-                use_huber: bool, cfg, cg_iters: int):
-    """One damped LM step with PCG on the implicit reduced camera system."""
+                use_huber: bool, cfg, cg_iters: int, group=None):
+    """One damped LM step with PCG on the implicit reduced camera system.
+    With `group`, points and observations are this rank's shard and every
+    camera-side sum is all-reduced; the camera solve is then the same on
+    every rank."""
     Wcp, U_d, V_inv, b_c, b_p, chi2, behind, delta2 = _blocks(
-        cam, prob, index, R, t, xw, active, lam, use_huber, cfg)
+        cam, prob, index, R, t, xw, active, lam, use_huber, cfg, group)
     C = prob.R.shape[0]
     free = prob.cam_free[:, None]
     oh_t = index.onehot.transpose(0, 1)
 
     Vb = smv(V_inv, b_p)
-    b_corr = oh_t @ smv(Wcp, Vb[prob.obs_pt])
+    b_corr = _all_reduce(oh_t @ smv(Wcp, Vb[prob.obs_pt]), group)
     rhs = -(b_c - b_corr) * free
 
     def S_apply(x):
         """(U_d - W V^-1 W^T) x without materializing S."""
         wtx = _to_points(index, stmv(Wcp, x[prob.obs_cam]))
-        corr = oh_t @ smv(Wcp, smv(V_inv, wtx)[prob.obs_pt])
+        corr = _all_reduce(oh_t @ smv(Wcp, smv(V_inv, wtx)[prob.obs_pt]), group)
         return (smv(U_d, x) - corr) * free
 
     M_inv = _inv6x6_spd(U_d)
@@ -345,15 +303,18 @@ def _cg_lm_step(cam, prob: BAProblem, index: FlatIndex, R, t, xw, active, lam,
 
 
 def gba_iteration(cam, prob: BAProblem, index: FlatIndex, R, t, xw, lam, active,
-                  use_huber: bool, cfg):
+                  use_huber: bool, cfg, group=None):
     """One LM iteration of flat-layout global BA (the reference's
     `make_gba_iteration` step), accepted only when it lowers the robust
-    cost. Returns (R, t, xw, lam, cost_new)."""
+    cost (summed over the ranks of `group`). Returns (R, t, xw, lam,
+    cost_new)."""
     Rn, tn, xwn, chi2, _, delta2 = _cg_lm_step(
-        cam, prob, index, R, t, xw, active, lam, use_huber, cfg, cfg.cg_iters)
+        cam, prob, index, R, t, xw, active, lam, use_huber, cfg, cfg.cg_iters, group)
     cost_old = _total_cost(chi2, active, delta2, use_huber)
     chi2_new, _ = _residual_chi2(cam, prob, Rn, tn, xwn)
     cost_new = _total_cost(chi2_new, active, delta2, use_huber)
+    if group is not None:
+        cost_old, cost_new = _all_reduce(torch.stack([cost_old, cost_new]), group).unbind()
     improved = cost_new < cost_old
     R = torch.where(improved, Rn, R)
     t = torch.where(improved, tn, t)

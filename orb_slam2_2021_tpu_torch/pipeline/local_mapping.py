@@ -7,7 +7,9 @@ Per inserted keyframe (LocalMapping::Run):
   3. new points triangulated against the covisible neighbours
      (CreateNewMapPoints) and neighbour fusion both ways (SearchInNeighbors),
      as bounded device units with one device -> host copy each;
-  4. local bundle adjustment (reduced-camera LM with PCG, optim/ba_cg.py);
+  4. local bundle adjustment: reduced-camera LM with PCG (optim/ba_cg.py)
+     by default, or with `use_cg_local_ba=False` the dense solve of the
+     reduced system (optim/ba.py) at the static window shapes;
   5. keyframe culling (KeyFrameCulling);
   6. with a loop closer attached, the keyframe and its BoW words go to loop
      closing, which runs inline.
@@ -23,11 +25,10 @@ Runs inline (`process_pending`, synchronous mode) or on a worker thread
 also keeps the occupancy grid. The map lock is held only for the host
 snapshot and merge sections of each stage, never across device work, so
 the tracking lane interleaves with the worker; a keyframe inserted while a
-local BA solves aborts the solve between its two LM phases (mbAbortBA).
+local BA solves aborts the solve between its two LM phases (mbAbortBA);
+the dense local BA runs as one unit, as the reference's does.
 The worker reads the live frame a keyframe was promoted from on its own
 stream, after an event the lane recorded (pipeline/streams.py).
-
-Not ported yet (ROADMAP.md): the dense BA path `use_cg_local_ba=False`.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 
 from ..convert import camera_from_config, desc_from_numpy, tensor, to_host
 from ..optim.assemble import assemble_ba_problem, upload_problem
+from ..optim.ba import make_local_ba
 from ..optim.ba_cg import lm_chunk_pq
 from .mapping_steps import KFView, fuse_project, triangulate_pair
 
@@ -131,9 +133,6 @@ class DeviceKFStore:
 
 class LocalMapping:
     def __init__(self, cfg, map_store, device):
-        if not cfg.optim.use_cg_local_ba:
-            raise NotImplementedError(
-                "the dense local BA (use_cg_local_ba=False) is not ported (ROADMAP.md queue 1, step 8)")
         self.cfg = cfg
         self.map = map_store
         self.device = torch.device(device)
@@ -544,10 +543,12 @@ class LocalMapping:
     def _local_ba_window(self, k: int):
         """Optimizer::LocalBundleAdjustment's window for keyframe k: k and
         its covisibles free (keyframe 0 stays fixed), the other observers of
-        their points fixed. Returns the host problem, padded to power-of-two
+        their points fixed. Returns the host problem with its bookkeeping:
+        (prob, cams, cam_free, mp, obs_kf, obs_feat, obs_mp), or None. The
+        CG solver's problem is in the PQ layout, padded to power-of-two
         buckets of the cameras, points and observations per point actually
-        present (the reference's padding), with its bookkeeping:
-        (prob, cams, cam_free, mp, obs_kf, obs_feat, obs_mp), or None."""
+        present; the dense solver's is flat, at the static capacities (the
+        reference's padding either way)."""
         ocfg = self.cfg.optim
         m = self.map
         local = [k] + [int(x) for x in m.covisible_keyframes(k, ocfg.local_ba_max_cams - 1)]
@@ -574,6 +575,12 @@ class LocalMapping:
             if len(frees):
                 cam_free[frees[np.argmin(cams[frees])]] = False
 
+        if not ocfg.use_cg_local_ba:
+            Q = ocfg.local_ba_max_obs_per_point
+            prob, obs_kf, obs_fe, obs_mp = assemble_ba_problem(
+                m, cams, cam_free, mp, C_pad=C_max, P_pad=ocfg.local_ba_max_points,
+                O_pad=ocfg.local_ba_max_obs, Q_pad=Q, obs_per_point_cap=Q)
+            return prob, cams, cam_free, mp, obs_kf, obs_fe, obs_mp
         C = min(max(32, 1 << (max(len(cams), 1) - 1).bit_length()), C_max)
         P = min(max(512, 1 << (max(len(mp), 1) - 1).bit_length()), ocfg.local_ba_max_points)
         cam_lut = np.full(m.kf_capacity, -1, np.int64)
@@ -597,9 +604,13 @@ class LocalMapping:
             return
         prob_h, cams, cam_free, mp, obs_kf, obs_fe, obs_mp = window
         t0 = time.perf_counter()
-        out = self._solve_ba_abortable(upload_problem(prob_h, self.device))
-        if out is None:
-            return  # aborted by a newly inserted keyframe
+        prob = upload_problem(prob_h, self.device)
+        if self.cfg.optim.use_cg_local_ba:
+            out = self._solve_ba_abortable(prob)
+            if out is None:
+                return  # aborted by a newly inserted keyframe
+        else:
+            out = make_local_ba(self.cfg.optim)(self.cam, prob)
         Rn, tn, xwn, inlier = to_host(*out)
         self.ba_solve_times.append(
             (time.perf_counter() - t0, self.cfg.optim.local_ba_iters1 + self.cfg.optim.local_ba_iters2))

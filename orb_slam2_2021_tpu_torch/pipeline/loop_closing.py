@@ -29,8 +29,11 @@ iterations (mbStopGBA), and its write-back is dropped when a newer loop
 superseded it (mnFullBAIdx); otherwise keyframes and points created while
 it solved are corrected through the spanning tree.
 
-Not ported (ROADMAP.md): the device-mesh and cross-process global BA
-(step 12).
+With a `parallel.gba_service.GbaClient` in `dist_gba` (System(dist_gba=...))
+the global BA is solved landmark-sharded over the client's process group:
+in process for a group of one, in lockstep with `GbaServer` ranks
+otherwise; the stop request then takes effect between chunks of LM
+iterations, and the same write-back rules hold.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..frontend.matchers import match_bruteforce_desc
 from ..optim.assemble import assemble_ba_problem, global_problem_shapes, upload_problem
 from ..optim.ba_cg import flat_index, gba_iteration, lm_chunk_pq
 from ..optim.sim3_opt import PoseGraph, essential_graph_solve, optimize_sim3_relative
+from ..parallel.dist_ba import shard_ba_problem
 from ..solvers.horn_sim3 import sample_indices, sim3_ransac
 from .mapping_steps import KFView, fuse_project
 
@@ -113,6 +117,8 @@ class LoopClosing:
         self.gba_thread: Optional[threading.Thread] = None
         self.gba_runs: List[dict] = []
         self.error: Optional[BaseException] = None
+        # parallel.gba_service.GbaClient: global BA over its process group
+        self.dist_gba = None
 
     @property
     def loop_edges(self) -> Dict[int, Set[int]]:
@@ -558,12 +564,14 @@ class LoopClosing:
         """Bundle adjustment over every keyframe and map point, keyframe 0
         fixed for the gauge: the reduced camera system of the PQ layout up to
         128 padded cameras (one LM iteration per call), the matrix-free flat
-        solver above. Observations beyond global_ba_obs_per_point per point
-        are dropped on the reduced-system path, as in the reference. The
-        problem is assembled under the map lock and solved outside it; the
-        solve stops between iterations when stop_gba is set, and the result
-        is written back only if no newer loop (full_ba_idx) superseded it
-        (`idx` None: the current index)."""
+        solver above, and with `dist_gba` the flat solver landmark-sharded
+        over its group (points padded to a multiple of the group's size).
+        Observations beyond global_ba_obs_per_point per point are dropped on
+        the reduced-system path, as in the reference. The problem is
+        assembled under the map lock and solved outside it; the solve stops
+        between iterations (between chunks with `dist_gba`) when stop_gba is
+        set, and the result is written back only if no newer loop
+        (full_ba_idx) superseded it (`idx` None: the current index)."""
         idx = self.full_ba_idx if idx is None else idx
         m = self.map
         ocfg = self.cfg.optim
@@ -577,14 +585,40 @@ class LoopClosing:
             n_obs = int(np.count_nonzero(m.mp_obs_kf[mp] >= 0))
             C_pad, P_pad, O_pad = global_problem_shapes(len(kfs), len(mp), n_obs)
             Qg = ocfg.global_ba_obs_per_point
-            use_rcs = C_pad <= 128
+            use_dist = self.dist_gba is not None
+            use_rcs = not use_dist and C_pad <= 128
+            if use_dist:
+                n_dev = self.dist_gba.world
+                P_pad = ((P_pad + n_dev - 1) // n_dev) * n_dev
             cam_free = kfs != 0
             if use_rcs:
                 prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad=None,
                                                     Q_pad=Qg, obs_per_point_cap=Qg, pq_layout=True)
             else:
                 prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad)
-        prob = upload_problem(prob, self.device)
+        if use_dist:
+            self.gba_iter_times = []
+            out = self.dist_gba.solve(shard_ba_problem(prob, self.dist_gba.world),
+                                      ocfg.global_ba_iters, should_stop=lambda: self.stop_gba,
+                                      iter_times=self.gba_iter_times)
+        else:
+            out = self._solve_global_ba(upload_problem(prob, self.device), use_rcs)
+        if out is None:
+            outcome = "aborted"  # the loop that stopped it runs its own global BA
+        else:
+            with m.lock:
+                if idx != self.full_ba_idx or self.stop_gba:
+                    outcome = "superseded"  # a newer loop correction owns the map now
+                else:
+                    self._gba_writeback(kfs, cam_free, mp, *out)
+                    outcome = "written"
+        self.gba_runs.append({"idx": idx, "outcome": outcome, "seconds": time.perf_counter() - t_start})
+
+    def _solve_global_ba(self, prob, use_rcs: bool):
+        """global_ba_iters LM iterations in this process (the reduced system
+        with `use_rcs`, else the flat solver), stop_gba checked before each.
+        Returns host (R, t, xw), or None when stopped."""
+        ocfg = self.cfg.optim
         R, t, xw = prob.R, prob.t, prob.xw
         lam = torch.tensor(ocfg.lm_lambda_init, dtype=torch.float32, device=self.device)
         active = prob.obs_valid.to(torch.float32)
@@ -593,23 +627,15 @@ class LoopClosing:
         t0 = time.perf_counter()
         for _ in range(n_iters):
             if self.stop_gba:
-                self.gba_runs.append({"idx": idx, "outcome": "aborted",
-                                      "seconds": time.perf_counter() - t_start})
-                return  # the loop that stopped it runs its own global BA
+                return None
             if use_rcs:
                 R, t, xw, lam, _ = lm_chunk_pq(self.cam, prob, R, t, xw, lam, active, True, ocfg, 1)
             else:
                 R, t, xw, lam, _ = gba_iteration(self.cam, prob, index, R, t, xw, lam, active,
                                                  True, ocfg)
-        R, t, xw = to_host(R, t, xw)
+        out = to_host(R, t, xw)
         self.gba_iter_times = [(time.perf_counter() - t0) / n_iters] * n_iters
-        with m.lock:
-            if idx != self.full_ba_idx or self.stop_gba:
-                outcome = "superseded"  # a newer loop correction owns the map now
-            else:
-                self._gba_writeback(kfs, cam_free, mp, R, t, xw)
-                outcome = "written"
-        self.gba_runs.append({"idx": idx, "outcome": outcome, "seconds": time.perf_counter() - t_start})
+        return out
 
     def _gba_writeback(self, kfs, cam_free, mp, Rn, tn, xwn):
         """Write the global BA result into the map as it stands now:

@@ -23,7 +23,11 @@ stream before anything is read back.
 Localization mode tracks against the map without changing it. Maps save to
 and boot from a map file; trajectories export in the KITTI and TUM formats;
 `profile_dir` records a torch.profiler trace from the first frame to
-`shutdown`. The dense local BA is not ported yet (ROADMAP.md).
+`shutdown`. `cfg.optim.use_cg_local_ba=False` selects the dense local BA.
+With `dist_gba` (a `parallel.gba_service.GbaClient`) the loop closer's
+global BA runs landmark-sharded over the client's process group, this
+process being its rank 0 (the reference's `mesh` and cross-process paths,
+folded into one: parallel/dist_ba.py).
 """
 
 from __future__ import annotations
@@ -60,13 +64,14 @@ class System:
                  enable_loop_closing: bool = True, vocab_path: Optional[str] = None,
                  place_rec: Optional[PlaceRecognition] = None,
                  sensor: str = "stereo", async_mode: bool = False,
-                 profile_dir: Optional[str] = None, device="cuda"):
+                 profile_dir: Optional[str] = None, device="cuda", dist_gba=None):
         """Load the vocabulary (the packaged one unless `vocab_path` or
         `place_rec` is given), create the map and keyframe database, and wire
         Tracking -> LocalMapping -> LoopClosing for `sensor` ("stereo",
         "rgbd" or "mono"); with async_mode (and mapping on) start the
         mapping worker. Runs on the card unless `device` says otherwise;
-        without a card a CUDA device raises."""
+        without a card a CUDA device raises. `dist_gba` (a GbaClient) takes
+        the global BA across its process group."""
         if sensor not in ("stereo", "rgbd", "mono"):
             raise ValueError(f"unknown sensor {sensor!r}")
         self.cfg = cfg
@@ -89,6 +94,7 @@ class System:
                                            fix_scale=sensor != "mono")
             self.loop_closer.local_mapper = self.local_mapper
             self.local_mapper.loop_closer = self.loop_closer
+            self.loop_closer.dist_gba = dist_gba
         self.tracker = Tracking(cfg, self.map, self.device, local_mapper=self.local_mapper,
                                 place_rec=self.place)
         self.tracker.sensor = sensor

@@ -174,7 +174,7 @@ def test_unported_modes_raise():
     packaged vocabulary, loop closing on), as does a given PlaceRecognition;
     the RGB-D and monocular Systems and localization mode construct and
     run; async mode starts its worker only with mapping on (as in the
-    reference); the dense local BA still raises."""
+    reference); the dense local BA (use_cg_local_ba=False) constructs."""
     from orb_slam2_2021_tpu_torch.place.bundle import PACKAGED_VOCAB_SMALL, PlaceRecognition
     from orb_slam2_2021_tpu_torch.place.vocab import BinaryVocabulary
 
@@ -187,9 +187,8 @@ def test_unported_modes_raise():
         assert started.async_mode == worker and (started._worker is not None) == worker
         started.shutdown()
         assert started._worker is None or not started._worker.is_alive()
-    with pytest.raises(NotImplementedError) as err:
-        TSystem(cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False)), device="cpu")
-    assert "ROADMAP.md" in str(err.value)
+    dense = TSystem(cfg.replace(optim=dataclasses.replace(cfg.optim, use_cg_local_ba=False)), device="cpu")
+    assert not dense.local_mapper.cfg.optim.use_cg_local_ba and dense.loop_closer.dist_gba is None
     with pytest.raises(ValueError):
         TSystem(cfg, sensor="lidar", device="cpu")
     sys_ = TSystem(cfg, device="cpu")
