@@ -90,11 +90,25 @@ Phases (any failure exits nonzero before the result lines are printed):
  22. two ranks on the card (gloo): scripts/torch_dist_live_2proc.py, rank 0
      the default sync System over phase 11's orbit with a GbaClient, rank 1
      a GbaServer: the loop at phase 11's pair and frame, the server's solve
-     written back, ATE.
+     written back, ATE;
+ 23. the System's outputs: stereo rectification (maps from arducam-style
+     settings at 640x480 and at KITTI width, a rendered pair remapped on
+     the card against the CPU path, an identity map, device ms and
+     launches per pair); pub/sub (a SystemPublisher and a TcpPublisher on
+     the five topics of run_slam.py --publish, read by a subscriber
+     socket, on phase 8's sync drive and phase 17's async RGB-D drive,
+     publishing outside the timed calls: one os2_pose per returned pose,
+     valid os2_metrics, the last cloud and grid of the sync drive, the
+     laser-scan relay, bytes and host ms of publish_map); the map processor
+     on phase 11's saved map (PLY, TUM, PGM; the PGM against the CPU
+     path's); the statistical outlier filter on phase 21's 487,556 corridor
+     points (time, blocks, peak memory, kept share, launches, bound) and on
+     a 20,000-point subset against the CPU path.
 
 The run's order differs from the numbering: phase 22 runs in processes of
 its own while the main process holds the CUDA-vs-CPU checks of phases 4,
-7, 10 and 14 (which report no times), after phase 21; phase 18 runs last.
+7, 10 and 14 and phase 23's CPU halves (which report no times), after
+phase 21 and phase 23's card checks; phase 18 runs last.
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -179,6 +193,70 @@ SCALE_KF, SCALE_PTS, SCALE_OBS, SCALE_ITERS = 1442, 487556, 570794, 3
 # the costs are bounded, the rest reported
 SCALE_TOL = {"R": 1e-3, "cost": 1e-3}
 LIVE_TIMEOUT_S = 480       # phase 22, both ranks
+# phase 23, the System's outputs. The arducam-style LEFT/RIGHT blocks of
+# tests/test_config_io.py (640x480), written out as a settings file
+ARDUCAM_YAML = """%YAML:1.0
+Camera.fx: 435.2046959714599
+Camera.fy: 435.2046959714599
+Camera.cx: 367.4517211914062
+Camera.cy: 252.2008514404297
+Camera.width: 640
+Camera.height: 480
+LEFT.height: 480
+LEFT.width: 640
+LEFT.D: !!opencv-matrix
+   rows: 1
+   cols: 5
+   dt: d
+   data: [-0.28, 0.07, 0.0002, 0.00002, 0.0]
+LEFT.K: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [458.654, 0.0, 367.215, 0.0, 457.296, 248.375, 0.0, 0.0, 1.0]
+LEFT.R: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
+LEFT.P: !!opencv-matrix
+   rows: 3
+   cols: 4
+   dt: d
+   data: [435.2046959714599, 0, 367.4517211914062, 0, 0, 435.2046959714599, 252.2008514404297, 0, 0, 0, 1, 0]
+RIGHT.height: 480
+RIGHT.width: 640
+RIGHT.D: !!opencv-matrix
+   rows: 1
+   cols: 5
+   dt: d
+   data: [-0.28, 0.07, 0.0002, 0.00002, 0.0]
+RIGHT.K: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [457.587, 0.0, 379.999, 0.0, 456.134, 255.238, 0.0, 0.0, 1.0]
+RIGHT.R: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
+RIGHT.P: !!opencv-matrix
+   rows: 3
+   cols: 4
+   dt: d
+   data: [435.2046959714599, 0, 367.4517211914062, -47.90639384423901, 0, 435.2046959714599, 252.2008514404297, 0, 0, 0, 1, 0]
+"""
+RECTIFY_DEG = 1.0      # the KITTI-width maps' rectifying rotation (left +, right -)
+RECTIFY_TOL = 1e-3     # remap, card vs CPU, on 0-255 values
+IDENTITY_TOL = 1e-4    # an identity map returns the image
+PUBLISH_EVERY = 10     # publish_map every 10 frames, as run_slam.py --publish
+POSE_TOL = 1e-6        # a published Twc against the rigid inverse of the returned pose
+PGM_CELLS_BOUND = 2000  # map processor PGM, card vs CPU (about 0.2% of 1024x1024)
+SOR_K = 50             # the gridmapper's setMeanK
+SOR_SUBSET = 20_000    # points of phase 21's corridor held card vs CPU
+SOR_RTOL = 1e-4        # mean kNN distances, card vs CPU
+SOR_KEEP_AGREE = 0.999  # share of equal keep flags, card vs CPU
 
 
 T_START = time.perf_counter()
@@ -238,6 +316,7 @@ def device_ms(fn, iters=50, warm=5):
 # the tensor cores' dense rate
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS_PER_S = 1979e12
+H100_FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
 LANE_MASK_DENSITY = 0.02     # open share of a lane matcher's candidate mask
 MAPPING_MASK_DENSITY = 0.05  # of an epipolar or projection-window mask
 
@@ -523,11 +602,12 @@ def render_orbit():
     return frames, gt
 
 
-def drive_kitti_mapping(dev, frames, gt, dense=False):
+def drive_kitti_mapping(dev, frames, gt, dense=False, publish=False):
     """Mapping on at KITTI width over the first N_MAP_FRAMES frames of the
     bench's orbit in the cylinder world; Hamming launches from the mapping
     units are counted apart from the lane's. `dense`: the dense local BA
-    (use_cg_local_ba=False, phase 20)."""
+    (use_cg_local_ba=False, phase 20). `publish`: phase 23's pub/sub on
+    the drive, outside the timed calls."""
     import dataclasses
 
     from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
@@ -552,14 +632,19 @@ def drive_kitti_mapping(dev, frames, gt, dense=False):
         counts["keyframes"] += q
 
     lm.process_pending = counted_process
+    pub = DrivePublisher(sys_) if publish else None
     HAMMING_BEST2_KERNEL.reset_counts()
     HAMMING_KERNEL.reset_counts()
     tracked = 0
     for i, pair in enumerate(frames):
-        if sys_.track_stereo(pair[0], pair[1], timestamp=0.1 * i) is not None:
+        pose = sys_.track_stereo(pair[0], pair[1], timestamp=0.1 * i)
+        if pose is not None:
             tracked += 1
+        if pub is not None:
+            pub.frame(i, 0.1 * i, pose)
     sys_.shutdown()
     launches, matrix_launches = HAMMING_BEST2_KERNEL.launches, HAMMING_KERNEL.launches
+    published = pub.check(label, sync=True) if pub is not None else None
 
     ate, length = _ate(sys_.trajectory_kitti(), gt)
     ms = 1e3 * np.asarray(sys_.frame_times)
@@ -602,7 +687,7 @@ def drive_kitti_mapping(dev, frames, gt, dense=False):
         raise AssertionError(f"the mapping drive launched hamming_matrix {matrix_launches} times")
     return {"launches": launches, "mapping_launches": counts["mapping"],
             "keyframes": counts["keyframes"], "matrix_launches": matrix_launches,
-            "ba_ms": ba_ms, "system": sys_}
+            "ba_ms": ba_ms, "system": sys_, "published": published}
 
 
 def _sim3_matches(rng, n=500):
@@ -808,13 +893,12 @@ def check_reloc_small_against_cpu(dev):
         raise AssertionError("320x240 relocalization: CUDA and CPU poses differ beyond 1e-3")
 
 
-def drive_kitti_default(dev, frames, gt):
+def drive_kitti_default(dev, frames, gt, map_path):
     """The System at the reference's defaults over the whole orbit at KITTI
     width. Hamming launches are counted per path: all of them over the
     drive, those inside the mapping units, inside loop closing, and per loop
-    stage; the loop closer's Hamming shapes are recorded."""
-    import tempfile
-
+    stage; the loop closer's Hamming shapes are recorded. The map is saved
+    to `map_path` (phase 23 reads it)."""
     from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
     from orb_slam2_2021_tpu_torch.frontend import matchers
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL, hamming_best2
@@ -919,10 +1003,8 @@ def drive_kitti_default(dev, frames, gt):
     # save, boot from the file on the card, relocalize a mid-orbit frame; its
     # camera centre, put in the ground truth's frame by the drive's ATE
     # alignment, must meet the ATE bound
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "map.npz")
-        sys_.save_map(path)
-        booted = System.from_map_file(cfg, path, device=dev)
+    sys_.save_map(map_path)
+    booted = System.from_map_file(cfg, map_path, device=dev)
     t0 = time.perf_counter()
     pose = booted.track_stereo(frames[RELOC_FRAME][0], frames[RELOC_FRAME][1], timestamp=99.0)
     t_reloc = time.perf_counter() - t0
@@ -1679,7 +1761,8 @@ def drive_async_sensors(dev, close_frames, tum_frames):
     """Phase 17: the RGB-D System in async mode over the first
     ASYNC_SENSOR_FRAMES close-range frames and the monocular one over the
     first TUM frames: tracked, keyframes mapped by the worker, invariants
-    clean, threads joined."""
+    clean, threads joined. Phase 23's pub/sub runs on the RGB-D drive,
+    outside the timed calls."""
     from orb_slam2_2021_tpu_torch.config import tum_rgbd_config
     from orb_slam2_2021_tpu_torch.pipeline.system import System
 
@@ -1688,6 +1771,7 @@ def drive_async_sensors(dev, close_frames, tum_frames):
     out = {}
     for sensor in ("rgbd", "mono"):
         sys_ = System(cfg, sensor=sensor, async_mode=True, device=dev)
+        pub = DrivePublisher(sys_) if sensor == "rgbd" else None
         _zero_launch_counts()
         tracked, init = 0, None
         for i in range(n):
@@ -1696,6 +1780,8 @@ def drive_async_sensors(dev, close_frames, tum_frames):
             if pose is not None:
                 tracked += 1
                 init = i if init is None else init
+            if pub is not None:
+                pub.frame(i, 0.1 * i, pose)
         sys_.shutdown()
         _check_threads(sys_, f"async {sensor} drive")
         best2, matrix = _launch_counts()
@@ -1711,6 +1797,8 @@ def drive_async_sensors(dev, close_frames, tum_frames):
             raise AssertionError(f"async {sensor} drive: tracked {tracked}/{n} from frame {init}, "
                                  f"{sys_.map.next_kf} keyframes, invariants {bad[:5]}")
         out[sensor] = {"launches": best2, "matrix_launches": matrix}
+        if pub is not None:
+            out[sensor]["published"] = pub.check(f"async {sensor} drive", sync=False)
     return out
 
 
@@ -1982,7 +2070,8 @@ def check_dist_gba(dev):
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     return {"ms_flat": runs["flat"]["ms"], "ms_shard": runs["shard"]["ms"], "ms_sharded": runs["sharded"]["ms"],
-            "onehot_gb": runs["sharded"]["onehot_bytes"] / 1e9, "peak_gb": peak_gb}
+            "onehot_gb": runs["sharded"]["onehot_bytes"] / 1e9, "peak_gb": peak_gb,
+            "points": np.asarray(prob.xw[:n_pts], np.float32)}
 
 
 def start_dist_live(frames, gt, device="cuda", config="kitti"):
@@ -2057,6 +2146,303 @@ def finish_dist_live(started, sync_ms):
     return {"launches": lead["hamming_best2_launches"], "matrix_launches": lead["hamming_matrix_launches"]}
 
 
+def _nd(d):
+    """An ndarray from its NDJSON form ({"__nd__", "dtype", "shape", "data"})."""
+    return np.asarray(d["data"], dtype=d["dtype"]).reshape(d["shape"])
+
+
+class DrivePublisher:
+    """Phase 23's pub/sub on a drive: a SystemPublisher and a TcpPublisher
+    on the five topics of run_slam.py --publish, read by a subscriber socket
+    on a thread of its own. `frame` runs after each track_* call, outside
+    the timed call; `check` closes the publisher and holds what arrived."""
+
+    def __init__(self, sys_):
+        import socket
+        import threading
+
+        from orb_slam2_2021_tpu_torch.io.pubsub import (TOPIC_GRID, TOPIC_GRID_POSE, TOPIC_METRICS,
+                                                        TOPIC_POINTCLOUD, TOPIC_POSE, MessageBus,
+                                                        SystemPublisher, TcpPublisher)
+
+        self.sys_ = sys_
+        bus = MessageBus()
+        self.spub = SystemPublisher(sys_, bus)
+        self.tcp = TcpPublisher(bus, [TOPIC_POSE, TOPIC_POINTCLOUD, TOPIC_GRID, TOPIC_GRID_POSE,
+                                      TOPIC_METRICS])
+        self.sock = socket.create_connection(("127.0.0.1", self.tcp.port), timeout=30)
+        self.sock.settimeout(None)
+        deadline = time.perf_counter() + 30
+        while self.tcp.n_subscribers == 0:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the publisher never accepted the subscriber")
+            time.sleep(0.01)
+        self.lines = []   # (topic, bytes, message) in arrival order
+        self.poses = []   # (timestamp, (R, t)) of each call that returned a pose
+        self.maps = []    # (timestamp, host ms of publish_map, cloud, grid) read at that frame
+        self.reader = threading.Thread(target=self._read, name="subscriber", daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        with self.sock.makefile("rb") as f:
+            for line in f:
+                msg = json.loads(line)
+                self.lines.append((msg["topic"], len(line), msg["msg"]))
+
+    def frame(self, i, ts, pose):
+        if pose is not None:
+            self.poses.append((ts, pose))
+        self.spub.publish_frame(ts)
+        if i % PUBLISH_EVERY == 0:
+            t0 = time.perf_counter()
+            self.spub.publish_map(ts)
+            ms = 1e3 * (time.perf_counter() - t0)
+            self.maps.append((ts, ms, self.sys_.point_cloud(), self.sys_.occupancy_grid().data))
+
+    def check(self, name, sync):
+        """Every call that returned a pose gave one os2_pose line whose Twc
+        inverts it; every os2_metrics line is a valid record; one map
+        message per publish_map (in a sync drive the last cloud and grid
+        equal the System's at that frame); the laser-scan relay of the
+        final cloud has finite ranges."""
+        from orb_slam2_2021_tpu_torch.io.metrics import validate_record
+        from orb_slam2_2021_tpu_torch.io.pubsub import pointcloud_to_laserscan
+
+        self.tcp.close()
+        self.reader.join(timeout=60)
+        self.sock.close()
+        if self.reader.is_alive():
+            raise AssertionError(f"{name}: the subscriber never saw the publisher close")
+        by_topic = {}
+        for topic, n_bytes, msg in self.lines:
+            by_topic.setdefault(topic, []).append((n_bytes, msg))
+        pose_msgs = [m for _, m in by_topic.get("os2_pose", [])]
+        worst = 0.0
+        for ts, (R, t) in self.poses:
+            got = [m for m in pose_msgs if m["t"] == ts]
+            if len(got) != 1:
+                raise AssertionError(f"{name}: {len(got)} os2_pose lines for the pose of t={ts}")
+            # the rigid inverse (R^T, -R^T t) in float64: the tracker's R is
+            # orthonormal only to float32 drift, so inv(Twc) is not R
+            Twc = _nd(got[0]["Twc"])
+            Rt = np.asarray(R, np.float64).T
+            worst = max(worst, float(np.abs(Twc[:3, :3] - Rt).max()),
+                        float(np.abs(Twc[:3, 3] + Rt @ np.asarray(t, np.float64)).max()))
+        if not self.poses or worst > POSE_TOL:
+            raise AssertionError(f"{name}: {len(self.poses)} poses, Twc off by {worst:.2e}")
+        metrics = [m for _, m in by_topic.get("os2_metrics", [])]
+        for rec in metrics:
+            validate_record(rec)
+        clouds, grids = by_topic.get("os2_pointcloud", []), by_topic.get("os2_gm", [])
+        if not metrics or len(clouds) != len(self.maps) or len(grids) != len(self.maps):
+            raise AssertionError(f"{name}: {len(metrics)} metrics, {len(clouds)} clouds and "
+                                 f"{len(grids)} grids for {len(self.maps)} map publications")
+        ts, ms, cloud, grid = self.maps[-1]
+        if sync and not (np.array_equal(_nd(clouds[-1][1]["points"]), cloud)
+                         and np.array_equal(_nd(grids[-1][1]["data"]), grid)):
+            raise AssertionError(f"{name}: the last published cloud or grid is not the System's")
+        map_bytes = sum(n for topic in ("os2_pointcloud", "os2_gm", "os2_gm_pose")
+                        for n, m in by_topic.get(topic, []) if m["t"] == ts)
+        final = self.sys_.point_cloud()
+        ranges, _ = pointcloud_to_laserscan(final)
+        n_finite = int(np.isfinite(ranges).sum())
+        if n_finite == 0:
+            raise AssertionError(f"{name}: the laser scan of the final cloud has no finite range")
+        pub_ms = [round(m[1], 2) for m in self.maps]
+        log(f"phase 23 pub/sub, {name}: {len(self.lines)} lines ({sum(n for _, n, _ in self.lines)} bytes), "
+            f"{len(pose_msgs)} os2_pose for {len(self.poses)} returned poses (Twc within {worst:.1e}), "
+            f"{len(metrics)} valid os2_metrics, {len(self.maps)} map publications; the last "
+            f"publish_map (t={ts:.1f}, {len(cloud)} points, grid {grid.shape[0]}x{grid.shape[1]}): "
+            f"{map_bytes} bytes, host ms per publish_map {pub_ms}; laser scan of the final "
+            f"{len(final)} points: {n_finite}/{len(ranges)} finite ranges")
+        return {"lines": len(self.lines), "map_bytes": map_bytes, "publish_map_ms": pub_ms,
+                "scan_finite": n_finite}
+
+
+def kitti_lens(deg):
+    """(K, D, R, P, size) of a KITTI-width rectification: K of
+    kitti_stereo_config(), the SMALL_LENS coefficients, a rotation of `deg`
+    degrees about the camera's y axis, P = [K | 0], 1241x376."""
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+
+    cfg = kitti_stereo_config()
+    K = np.array([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1.0]])
+    th = np.deg2rad(deg)
+    R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+    return K, np.asarray(SMALL_LENS), R, np.concatenate([K, np.zeros((3, 1))], axis=1), (cfg.width, cfg.height)
+
+
+def remap_bound(h, w):
+    """A remapped pair: per image the uint8 image and the two float32 maps
+    read once, the float32 output written once; no arithmetic bound."""
+    return _bound(2 * h * w * (1 + 8 + 4), 0)
+
+
+def sor_bound(n):
+    """The SOR kNN: the [N, N] float32 distances written and read once;
+    3 FMAs (6 float32 operations) per pair over the fp32 rate."""
+    t_bytes = 1e3 * 8.0 * n * n / H100_BYTES_PER_S
+    t_ops = 1e3 * 6.0 * n * n / H100_FP32_FLOPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_rectify(dev, orbit_pair, work):
+    """Phase 23, rectify: maps from the arducam settings (640x480) and at
+    KITTI width (kitti_stereo_config()'s K, SMALL_LENS, a RECTIFY_DEG
+    rotation); a rendered pair remapped on the card and on the CPU path;
+    pixels with no corner inside exactly 0 on both; an identity map; device
+    ms and launches per pair."""
+    from orb_slam2_2021_tpu_torch.config import synthetic_config
+    from orb_slam2_2021_tpu_torch.io.rectify import build_rectify_map, rectification_from_yaml, remap
+    from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticStereoWorld, forward_trajectory
+
+    path = os.path.join(work, "arducam.yaml")
+    with open(path, "w") as f:
+        f.write(ARDUCAM_YAML)
+    world = SyntheticStereoWorld(synthetic_config(width=640, height=480), seed=WORLD_SEED)
+    pair640 = np.clip(np.stack(world.render(*forward_trajectory(1, STEP)[0])), 0, 255).astype(np.uint8)
+    kitti = tuple(build_rectify_map(*kitti_lens(d)) for d in (RECTIFY_DEG, -RECTIFY_DEG))
+    out = {}
+    for label, maps, pair in (("arducam 640x480", rectification_from_yaml(path), pair640),
+                              ("KITTI 1241x376", kitti, orbit_pair)):
+        h, w = maps[0].map_x.shape
+        on_card = [torch.from_numpy(img).to(dev) for img in pair]
+        card = [remap(img, m, dev) for img, m in zip(on_card, maps)]
+        cpu = [remap(img, m, "cpu") for img, m in zip(pair, maps)]
+        _require_on_card(card, "remap")
+        err, n_out = 0.0, 0
+        for g, c, m in zip(card, cpu, maps):
+            if g.dtype != torch.float32 or tuple(g.shape) != (h, w):
+                raise AssertionError(f"remap gave {g.dtype} {tuple(g.shape)}")
+            err = max(err, float((g.cpu() - c).abs().max()))
+            outside = torch.from_numpy((m.map_x < -1) | (m.map_x >= w) | (m.map_y < -1) | (m.map_y >= h))
+            n_out += int(outside.sum())
+            if not ((g.cpu()[outside] == 0).all() and (c[outside] == 0).all()):
+                raise AssertionError(f"{label}: a pixel with no corner inside the image is not 0")
+        _, launches, kern_ms = _kernels_in(lambda: [remap(i, m, dev) for i, m in zip(on_card, maps)])
+        ms = device_ms(lambda: [remap(i, m, dev) for i, m in zip(on_card, maps)])
+        bound, by = remap_bound(h, w)
+        log(f"phase 23 rectify {label}: card vs CPU max |diff| {err:.2e} (bound {RECTIFY_TOL}), "
+            f"{n_out} pixels with no corner inside, 0 on both; per pair (images on the card, uint8): "
+            f"{launches} launches, {ms:.4f} ms (device_ms), {kern_ms:.4f} ms of kernels (profiler); "
+            f"bound {bound:.4f} ms by {by}")
+        if err > RECTIFY_TOL:
+            raise AssertionError(f"{label}: remap card vs CPU differs by {err}")
+        out[label] = {"ms": ms, "launches": launches, "bound_ms": bound, "max_abs_err": err}
+    K, _, _, P, size = kitti_lens(0.0)
+    ident = build_rectify_map(K, np.zeros(5), np.eye(3), P, size)
+    img = torch.from_numpy(orbit_pair[0]).to(dev)
+    err = float((remap(img, ident, dev) - img.float()).abs().max())
+    log(f"phase 23 rectify identity map {size[0]}x{size[1]}: max |diff| {err:.2e} (bound {IDENTITY_TOL})")
+    if err > IDENTITY_TOL:
+        raise AssertionError(f"the identity map moved the image by {err}")
+    return out
+
+
+def check_map_processor(dev, map_path, out_dir):
+    """Phase 23, map processor: MapProcessor on the card over phase 11's
+    saved map; its PLY, TUM and PGM files; one TUM row per live keyframe."""
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.tools.map_processor import MapProcessor
+
+    t0 = time.perf_counter()
+    mp = MapProcessor(map_path, kitti_stereo_config(), device=dev)
+    os.makedirs(out_dir, exist_ok=True)
+    files = {f: os.path.join(out_dir, f) for f in ("pointcloud.ply", "kf_trajectory_tum.txt", "gridmap.pgm")}
+    mp.save_point_cloud_ply(files["pointcloud.ply"])
+    mp.save_trajectory_tum(files["kf_trajectory_tum.txt"])
+    grid = mp.save_grid_map_pgm(files["gridmap.pgm"])
+    secs = time.perf_counter() - t0
+    n_kf, n_mp = int(mp.map.kf_valid.sum()), int(mp.map.mp_valid.sum())
+    rows = np.loadtxt(files["kf_trajectory_tum.txt"], ndmin=2)
+    n_ply = int(open(files["pointcloud.ply"]).read().split("element vertex ")[1].split()[0])
+    log(f"phase 23 map processor on the card, phase 11's map ({n_kf} keyframes, {n_mp} points): "
+        f"{n_ply} points kept by the filter, {len(rows)} TUM rows, grid {grid.data.shape}, "
+        f"{int((grid.data == 100).sum())} occupied and {int((grid.data == 0).sum())} free cells; "
+        f"{secs:.2f} s (host clock, load to the last file)")
+    if any(os.path.getsize(p) == 0 for p in files.values()):
+        raise AssertionError("the map processor wrote an empty file")
+    if len(rows) != n_kf or rows.shape[1] != 8:
+        raise AssertionError(f"{len(rows)} TUM rows for {n_kf} live keyframes")
+    if not 0 < n_ply <= n_mp:
+        raise AssertionError(f"the filtered cloud has {n_ply} of {n_mp} points")
+    return {"files": files, "n_kf": n_kf, "n_points": n_mp, "kept": n_ply}
+
+
+def check_map_processor_cpu(card, map_path, out_dir):
+    """Phase 23's CPU half: the same map processed on the CPU path; the PGM
+    against the card's, cell for cell."""
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.tools.map_processor import MapProcessor
+
+    mp = MapProcessor(map_path, kitti_stereo_config(), device="cpu")
+    os.makedirs(out_dir, exist_ok=True)
+    pgm = os.path.join(out_dir, "gridmap.pgm")
+    mp.save_grid_map_pgm(pgm)
+    a, b = open(card["files"]["gridmap.pgm"], "rb").read(), open(pgm, "rb").read()
+    if len(a) != len(b):
+        raise AssertionError("the card's and the CPU's PGM differ in size")
+    n_diff = int((np.frombuffer(a, np.uint8) != np.frombuffer(b, np.uint8)).sum())
+    log(f"phase 23 map processor PGM, card vs CPU path: {n_diff} cells differ (bound {PGM_CELLS_BOUND})")
+    if n_diff > PGM_CELLS_BOUND:
+        raise AssertionError(f"{n_diff} PGM cells differ between the card and the CPU")
+    return n_diff
+
+
+def check_sor(dev, points):
+    """Phase 23, SOR at real size: the filter on phase 21's corridor
+    points on the card (time, block size, peak memory, kept share,
+    launches, kernel time, bound); the kNN means of a SOR_SUBSET-point
+    subset on the card, for the CPU half."""
+    from orb_slam2_2021_tpu_torch.tools.map_processor import (mean_knn_distances, sor_block_rows,
+                                                              statistical_outlier_filter)
+
+    n = len(points)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # one run at full size (about 8 s): CUDA events around the call, inside
+    # the profiler's window
+    (keep, ms), launches, kern_ms = _kernels_in(
+        lambda: _event_ms(lambda: statistical_outlier_filter(points, SOR_K, device=dev)))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    bound, by = sor_bound(n)
+    log(f"phase 23 SOR at {n} points (k={SOR_K}): {ms:.1f} ms (CUDA events, upload to mask), "
+        f"{kern_ms:.1f} ms of device activity over {launches} launches and copies (profiler); blocks of "
+        f"{sor_block_rows(n)} rows, peak device memory {peak_gb:.2f} GB; kept {keep.mean():.4f}; "
+        f"bound {bound:.1f} ms by {by}, {bound / kern_ms:.1%} of the device time")
+    if not 0.5 < keep.mean() < 1.0:
+        raise AssertionError(f"the filter kept {keep.mean():.4f} of the corridor")
+    rng = np.random.default_rng(WORLD_SEED)
+    sub = np.ascontiguousarray(points[np.sort(rng.choice(n, SOR_SUBSET, replace=False))], np.float32)
+    ps = torch.from_numpy(sub).to(dev)
+    md = mean_knn_distances(ps, SOR_K).cpu().numpy()
+    sub_ms = device_ms(lambda: mean_knn_distances(ps, SOR_K), iters=5, warm=1)
+    _, sub_launches, _ = _kernels_in(lambda: mean_knn_distances(ps, SOR_K))
+    log(f"phase 23 SOR kNN means at {SOR_SUBSET} points: {sub_ms:.3f} ms (device_ms), "
+        f"{sub_launches} launches; bound {sor_bound(SOR_SUBSET)[0]:.3f} ms")
+    torch.cuda.empty_cache()
+    return {"n": n, "ms": ms, "kernel_ms": kern_ms, "launches": launches, "bound_ms": bound,
+            "peak_gb": peak_gb, "kept": float(keep.mean()), "subset": sub, "subset_md": md,
+            "subset_keep": statistical_outlier_filter(sub, SOR_K, device=dev),
+            "subset_ms": sub_ms, "subset_launches": sub_launches}
+
+
+def check_sor_cpu(card):
+    """Phase 23's CPU half of the SOR: the subset's kNN means and keep flags
+    on the CPU path against the card's."""
+    from orb_slam2_2021_tpu_torch.tools.map_processor import (mean_knn_distances,
+                                                              statistical_outlier_filter)
+
+    sub = card["subset"]
+    md = mean_knn_distances(torch.from_numpy(sub), SOR_K).numpy()
+    rel = float(np.max(np.abs(card["subset_md"] - md) / md))
+    agree = float((statistical_outlier_filter(sub, SOR_K, device="cpu") == card["subset_keep"]).mean())
+    log(f"phase 23 SOR at {len(sub)} points, card vs CPU path: kNN means within {rel:.2e} relative "
+        f"(bound {SOR_RTOL}), keep flags equal on {agree:.5f} (bound {SOR_KEEP_AGREE})")
+    if rel > SOR_RTOL or agree < SOR_KEEP_AGREE:
+        raise AssertionError("the SOR on the card disagrees with the CPU path")
+    return rel, agree
+
+
 def _best2_by_thread():
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
 
@@ -2064,8 +2450,17 @@ def _best2_by_thread():
 
 
 def main():
+    import tempfile
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        run(work)
+
+
+def run(work):
+    """Every phase, in the order the module's docstring gives; `work` holds
+    the files phases hand on (phase 11's map, phase 23's outputs)."""
     sys.path.insert(0, REPO)
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
     dev = torch.device("cuda:0")
@@ -2088,9 +2483,10 @@ def main():
     err, mapping_times = check_hamming_mapping_shapes(dev)
     max_err = max(max_err, err)
     times.update(mapping_times)
-    mapping = drive_kitti_mapping(dev, frames, gt)
+    mapping = drive_kitti_mapping(dev, frames, gt, publish=True)
     unit_ms = check_loop_numerics(dev)
-    loop = drive_kitti_default(dev, frames, gt)
+    map_path = os.path.join(work, "orbit_map.npz")
+    loop = drive_kitti_default(dev, frames, gt, map_path)
     err, loop_times = check_hamming_loop_shapes(dev, loop["shapes"])
     max_err = max(max_err, err)
     times.update(loop_times)
@@ -2113,7 +2509,14 @@ def main():
     log(f"phase 20 dense local BA ms per solve {[round(x, 2) for x in dense['ba_ms']]} beside phase 8's "
         f"CG solves {[round(x, 2) for x in mapping['ba_ms']]}; phase 19 unit: {dense_unit}")
     scale = check_dist_gba(dev)
+    corridor = scale.pop("points")
     log(f"phase 21: {scale}")
+    # phase 23 on the card (its pub/sub ran on the drives of phases 8 and 17)
+    t23 = time.perf_counter()
+    rectify = check_rectify(dev, frames[0], work)
+    mproc = check_map_processor(dev, map_path, os.path.join(work, "map_card"))
+    sor = check_sor(dev, corridor)
+    log(f"phase 23 on the card: {time.perf_counter() - t23:.1f} s")
     # phase 22's two ranks run in processes of their own while this one
     # holds the CUDA drives of phases 4, 7, 10 and 14 against the CPU path,
     # which report no times, on half of the CPU threads
@@ -2125,6 +2528,10 @@ def main():
         check_mapping_small_against_cpu(dev)
         check_reloc_small_against_cpu(dev)
         check_sensors_small_against_cpu(dev)
+        t23 = time.perf_counter()
+        check_map_processor_cpu(mproc, map_path, os.path.join(work, "map_cpu"))
+        check_sor_cpu(sor)
+        log(f"phase 23, the CPU halves: {time.perf_counter() - t23:.1f} s")
         live = finish_dist_live(started, loop["ms"])
     finally:
         stop_dist_live(started)

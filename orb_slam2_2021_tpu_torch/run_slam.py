@@ -18,9 +18,11 @@ Options:
   --metrics <f>    dump per-frame metrics NDJSON (state, matches, inliers,
                    ms per stage)
   --profile <dir>  record a torch.profiler trace over the run (trace.json)
-  --viz <dir>, --publish
-                   the viewer and the pub/sub outputs are not ported yet
-                   (ROADMAP.md queue 1) and raise NotImplementedError
+  --publish        NDJSON TCP pub/sub of os2_pose / os2_pointcloud / os2_gm /
+                   os2_gm_pose / os2_metrics in the synthetic and kitti modes
+                   (prints the port; subscribe with e.g. `nc 127.0.0.1 <port>`)
+  --viz <dir>      the viewer is not ported yet (ROADMAP.md queue 1) and
+                   raises NotImplementedError
 """
 
 from __future__ import annotations
@@ -29,6 +31,30 @@ import sys
 import time
 
 import numpy as np
+
+
+def _setup_publisher(sys_):
+    """The pub/sub outputs of --publish: (SystemPublisher, TcpPublisher), or
+    (None, None) without the flag."""
+    if "--publish" not in sys.argv:
+        return None, None
+    from .io.pubsub import (TOPIC_GRID, TOPIC_GRID_POSE, TOPIC_METRICS, TOPIC_POINTCLOUD,
+                            TOPIC_POSE, MessageBus, SystemPublisher, TcpPublisher)
+
+    bus = MessageBus()
+    spub = SystemPublisher(sys_, bus)
+    tcp = TcpPublisher(bus, [TOPIC_POSE, TOPIC_POINTCLOUD, TOPIC_GRID, TOPIC_GRID_POSE,
+                             TOPIC_METRICS])
+    print(f"publishing NDJSON on 127.0.0.1:{tcp.port}", flush=True)
+    return spub, tcp
+
+
+def _publish(spub, ts, i):
+    """The frame's pose and metrics; the map every 10 frames."""
+    if spub is not None:
+        spub.publish_frame(ts)
+        if i % 10 == 0:
+            spub.publish_map(ts)
 
 
 def _flag_value(name):
@@ -71,9 +97,8 @@ class Pacer:
 
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "synthetic"
-    for flag, what in (("--viz", "the viewer (viz/)"), ("--publish", "pub/sub (io/pubsub.py)")):
-        if flag in sys.argv:
-            raise NotImplementedError(f"{flag}: {what} is not ported yet (ROADMAP.md queue 1)")
+    if "--viz" in sys.argv:
+        raise NotImplementedError("--viz: the viewer (viz/) is not ported yet (ROADMAP.md queue 1)")
     device = _flag_value("--device") or "cuda"
     kw = {"profile_dir": _flag_value("--profile"), "async_mode": "--async" in sys.argv,
           "device": device}
@@ -82,6 +107,7 @@ def main():
     from .pipeline.system import System
 
     pacer = Pacer("--pace" in sys.argv)
+    tcp = None
     if mode == "synthetic":
         from .io.synthetic import SyntheticStereoWorld, forward_trajectory
         from .io.trajectory import ate_rmse
@@ -91,10 +117,12 @@ def main():
         world = SyntheticStereoWorld(cfg, seed=3)
         gt = forward_trajectory(n, step=0.12)
         sys_ = System(cfg, **kw)
+        spub, tcp = _setup_publisher(sys_)
         for i, (R, t) in enumerate(gt):
             left, right = world.render(R, t)
             pacer.wait(i * 0.1)
             sys_.track_stereo(left, right, timestamp=i * 0.1)
+            _publish(spub, i * 0.1, i)
             print(f"frame {i:04d}: {sys_.tracker.state.name} inliers={sys_.tracker.n_inliers_last} "
                   f"kf={sys_.map.n_kf}")
         sys_.shutdown()
@@ -110,9 +138,11 @@ def main():
 
         seq = KittiStereoSequence(sys.argv[2], max_frames=500 if "--reduced" in sys.argv else None)
         sys_ = System(kitti_stereo_config(), **kw)
-        for ts, left, right in seq:
+        spub, tcp = _setup_publisher(sys_)
+        for i, (ts, left, right) in enumerate(seq):
             pacer.wait(ts)
             sys_.track_stereo(left, right, timestamp=ts)
+            _publish(spub, ts, i)
         sys_.shutdown()
     elif mode == "tum":
         from .io.datasets import TumRgbdSequence
@@ -132,6 +162,8 @@ def main():
         sys_.shutdown()
     else:
         raise SystemExit(__doc__)
+    if tcp is not None:
+        tcp.close()
 
     stats = sys_.timing_stats()
     pacer.report()

@@ -444,3 +444,44 @@ def test_cold_build_from_two_threads_gives_one_library(cuda_device, tmp_path, mo
         th.join()
     assert len(compiles) == 1 and len(got) == 2 and got[0] is got[1]
     assert len([p for p in tmp_path.iterdir() if p.suffix == ".so"]) == 1
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_remap_on_cuda_matches_cpu(cuda_device, dtype):
+    """The rectifying gather at KITTI width on the card against the CPU
+    path (which tests/test_torch_io.py holds against the reference):
+    within 1e-3 on 0-255 values, exactly 0 where no corner is inside."""
+    from orb_slam2_2021_tpu_torch.io.rectify import RectifyMaps, remap
+
+    rng = np.random.default_rng(12)
+    h, w = 376, 1241
+    maps = RectifyMaps(map_y=rng.uniform(-3, h + 2, (h, w)).astype(np.float32),
+                       map_x=rng.uniform(-3, w + 2, (h, w)).astype(np.float32))
+    img = rng.uniform(0, 255, (h, w)).astype(dtype)
+    gpu, cpu = remap(img, maps, device=cuda_device), remap(img, maps, device="cpu")
+    assert gpu.device.type == "cuda" and gpu.dtype == torch.float32
+    assert float((gpu.cpu() - cpu).abs().max()) <= 1e-3
+    outside = torch.from_numpy((maps.map_x <= -1) | (maps.map_x >= w) | (maps.map_y <= -1)
+                               | (maps.map_y >= h))
+    assert (gpu.cpu()[outside] == 0).all() and (cpu[outside] == 0).all()
+
+
+def test_sor_on_cuda_matches_cpu(cuda_device):
+    """The outlier filter's mean kNN distances on the card against the CPU
+    path, far from the origin (the expansion's cancellation): within 1e-4
+    relative, at least 99.9% of the keep flags equal, blocks of 7 rows as
+    one block."""
+    from orb_slam2_2021_tpu_torch.tools.map_processor import (mean_knn_distances,
+                                                              statistical_outlier_filter)
+
+    rng = np.random.default_rng(13)
+    pts = np.stack([rng.uniform(0, 700, 5000), rng.uniform(-3, 3, 5000),
+                    rng.uniform(4, 30, 5000)], 1).astype(np.float32)
+    p = torch.from_numpy(pts)
+    gpu = mean_knn_distances(p.to(cuda_device), 50)
+    cpu = mean_knn_distances(p, 50)
+    assert gpu.device.type == "cuda"
+    np.testing.assert_allclose(gpu.cpu().numpy(), cpu.numpy(), rtol=1e-4, atol=0)
+    assert torch.equal(mean_knn_distances(p.to(cuda_device), 50, block_rows=7), gpu)
+    assert (statistical_outlier_filter(pts, device=cuda_device)
+            == statistical_outlier_filter(pts, device="cpu")).mean() >= 0.999

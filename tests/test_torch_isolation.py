@@ -1,7 +1,7 @@
 """The port stands alone: no module of orb_slam2_2021_tpu_torch, and none of
 the programs that run on the card (chip_smoke.py, bench_torch.py, the
-dataset driver run_slam.py, tests/test_torch_cuda.py, scripts/torch_*.py),
-imports JAX or anything of the JAX package. The only
+dataset program run_slam.py, the map processor's CLI,
+tests/test_torch_cuda.py, scripts/torch_*.py), imports JAX or anything of the JAX package. The only
 thing the port takes from that package's directory is the vocabulary data,
 read by path.
 """
@@ -19,7 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFUSED = ("jax", "jaxlib", "orb_slam2_2021_tpu")
 CARD_PROGRAMS = ["chip_smoke.py", "bench_torch.py", "orb_slam2_2021_tpu_torch/run_slam.py",
                  "orb_slam2_2021_tpu_torch/pipeline/streams.py",
-                 "orb_slam2_2021_tpu_torch/io/datasets.py", "tests/test_torch_cuda.py"] + sorted(
+                 "orb_slam2_2021_tpu_torch/io/datasets.py",
+                 "orb_slam2_2021_tpu_torch/tools/map_processor.py", "tests/test_torch_cuda.py"] + sorted(
     os.path.relpath(p, REPO) for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
 
 
