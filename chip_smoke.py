@@ -103,12 +103,22 @@ Phases (any failure exits nonzero before the result lines are printed):
      on phase 11's saved map (PLY, TUM, PGM; the PGM against the CPU
      path's); the statistical outlier filter on phase 21's 487,556 corridor
      points (time, blocks, peak memory, kept share, launches, bound) and on
-     a 20,000-point subset against the CPU path.
+     a 20,000-point subset against the CPU path;
+ 24. the last modules: the chessboard calibrator (60 stereo views of an
+     8x6 board through the arducam-style lenses, 0.2 px of noise): the
+     joint LM on the card in float32 and float64 (device ms, launches, no
+     host sync inside its 30 iterations, bound), the stereo solve against
+     the truth, its YAML through rectification_from_yaml and a pair
+     remapped on the card against the CPU path, and the card's LM against
+     the CPU's in float64 and float32; the headless Viewer (stride 5) on
+     phase 8's sync drive (PNGs, host ms per update) and phase 17's async
+     RGB-D drive (the map lock's hold per update).
 
 The run's order differs from the numbering: phase 22 runs in processes of
 its own while the main process holds the CUDA-vs-CPU checks of phases 4,
-7, 10 and 14 and phase 23's CPU halves (which report no times), after
-phase 21 and phase 23's card checks; phase 18 runs last.
+7, 10 and 14 and phase 23's and phase 24's CPU halves (which report no times), after
+phase 21 and the card checks of phases 23 and 24; phase 24's viewer runs on
+the drives of phases 8 and 17; phase 18 runs last.
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -257,6 +267,24 @@ SOR_K = 50             # the gridmapper's setMeanK
 SOR_SUBSET = 20_000    # points of phase 21's corridor held card vs CPU
 SOR_RTOL = 1e-4        # mean kNN distances, card vs CPU
 SOR_KEEP_AGREE = 0.999  # share of equal keep flags, card vs CPU
+# phase 24, calibration: an 8x6 board of 0.108 m squares in 60 views at
+# 640x480 through the lenses of ARDUCAM_YAML (LEFT/RIGHT K, D with k1 -0.28),
+# the corners with 0.2 px of Gaussian noise; the right eye 0.12 m along x and
+# turned 0.3 degrees about y
+CALIB_BOARD = (8, 6, 0.108)          # inner corners (cols, rows), square size in m
+CALIB_SIZE = (640, 480)
+CALIB_VIEWS, CALIB_NOISE_PX, CALIB_SEED = 60, 0.2, 24
+CALIB_LEFT_K = (458.654, 457.296, 367.215, 248.375)    # fx, fy, cx, cy
+CALIB_RIGHT_K = (457.587, 456.134, 379.999, 255.238)
+CALIB_DIST = (-0.28, 0.07, 0.0002, 0.00002, 0.0)        # k1 k2 p1 p2 k3
+CALIB_BASELINE, CALIB_TOE_RAD = 0.12, np.deg2rad(0.3)
+CALIB_TRUTH_PX = 5.0       # fx, fy, cx, cy of the card's solve against the truth
+CALIB_RMS_MAX = 0.25       # px
+CALIB_BASELINE_TOL = 0.01  # m
+# the card's LM in tools.calibration.CALIB_DTYPE against the CPU's float64
+# solve of the same views: K (fx, fy, cx, cy) in px, the rms in px
+CALIB_K_TOL, CALIB_RMS_TOL = 0.05, 1e-3
+VIEWER_STRIDE = 5          # run_slam.py --viz's stride
 
 
 T_START = time.perf_counter()
@@ -317,6 +345,7 @@ def device_ms(fn, iters=50, warm=5):
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS_PER_S = 1979e12
 H100_FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
+H100_FP64_TENSOR_FLOPS_PER_S = 67e12  # float64 on the tensor cores (data sheet)
 LANE_MASK_DENSITY = 0.02     # open share of a lane matcher's candidate mask
 MAPPING_MASK_DENSITY = 0.05  # of an epipolar or projection-window mask
 
@@ -602,12 +631,13 @@ def render_orbit():
     return frames, gt
 
 
-def drive_kitti_mapping(dev, frames, gt, dense=False, publish=False):
+def drive_kitti_mapping(dev, frames, gt, dense=False, publish=False, viz_dir=None):
     """Mapping on at KITTI width over the first N_MAP_FRAMES frames of the
     bench's orbit in the cylinder world; Hamming launches from the mapping
     units are counted apart from the lane's. `dense`: the dense local BA
     (use_cg_local_ba=False, phase 20). `publish`: phase 23's pub/sub on
-    the drive, outside the timed calls."""
+    the drive, outside the timed calls. `viz_dir`: phase 24's Viewer
+    (stride VIEWER_STRIDE) writing its PNGs there, outside the timed calls."""
     import dataclasses
 
     from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
@@ -633,6 +663,7 @@ def drive_kitti_mapping(dev, frames, gt, dense=False, publish=False):
 
     lm.process_pending = counted_process
     pub = DrivePublisher(sys_) if publish else None
+    viewer = DriveViewer(sys_, viz_dir) if viz_dir else None
     HAMMING_BEST2_KERNEL.reset_counts()
     HAMMING_KERNEL.reset_counts()
     tracked = 0
@@ -642,9 +673,12 @@ def drive_kitti_mapping(dev, frames, gt, dense=False, publish=False):
             tracked += 1
         if pub is not None:
             pub.frame(i, 0.1 * i, pose)
+        if viewer is not None:
+            viewer.frame(pair[0])
     sys_.shutdown()
     launches, matrix_launches = HAMMING_BEST2_KERNEL.launches, HAMMING_KERNEL.launches
     published = pub.check(label, sync=True) if pub is not None else None
+    viewed = viewer.check(label, len(frames)) if viewer is not None else None
 
     ate, length = _ate(sys_.trajectory_kitti(), gt)
     ms = 1e3 * np.asarray(sys_.frame_times)
@@ -687,7 +721,7 @@ def drive_kitti_mapping(dev, frames, gt, dense=False, publish=False):
         raise AssertionError(f"the mapping drive launched hamming_matrix {matrix_launches} times")
     return {"launches": launches, "mapping_launches": counts["mapping"],
             "keyframes": counts["keyframes"], "matrix_launches": matrix_launches,
-            "ba_ms": ba_ms, "system": sys_, "published": published}
+            "ba_ms": ba_ms, "system": sys_, "published": published, "viewed": viewed}
 
 
 def _sim3_matches(rng, n=500):
@@ -1757,12 +1791,12 @@ def drive_async_bench(dev, frames, gt, sync_ms):
             "median_ms": float(np.median(ms[w:]))}
 
 
-def drive_async_sensors(dev, close_frames, tum_frames):
+def drive_async_sensors(dev, close_frames, tum_frames, viz_dir):
     """Phase 17: the RGB-D System in async mode over the first
     ASYNC_SENSOR_FRAMES close-range frames and the monocular one over the
     first TUM frames: tracked, keyframes mapped by the worker, invariants
-    clean, threads joined. Phase 23's pub/sub runs on the RGB-D drive,
-    outside the timed calls."""
+    clean, threads joined. Phase 23's pub/sub and phase 24's Viewer (its
+    PNGs to `viz_dir`) run on the RGB-D drive, outside the timed calls."""
     from orb_slam2_2021_tpu_torch.config import tum_rgbd_config
     from orb_slam2_2021_tpu_torch.pipeline.system import System
 
@@ -1772,6 +1806,7 @@ def drive_async_sensors(dev, close_frames, tum_frames):
     for sensor in ("rgbd", "mono"):
         sys_ = System(cfg, sensor=sensor, async_mode=True, device=dev)
         pub = DrivePublisher(sys_) if sensor == "rgbd" else None
+        viewer = DriveViewer(sys_, viz_dir) if sensor == "rgbd" else None
         _zero_launch_counts()
         tracked, init = 0, None
         for i in range(n):
@@ -1782,6 +1817,8 @@ def drive_async_sensors(dev, close_frames, tum_frames):
                 init = i if init is None else init
             if pub is not None:
                 pub.frame(i, 0.1 * i, pose)
+            if viewer is not None:
+                viewer.frame(close_frames[i][0])
         sys_.shutdown()
         _check_threads(sys_, f"async {sensor} drive")
         best2, matrix = _launch_counts()
@@ -1799,6 +1836,8 @@ def drive_async_sensors(dev, close_frames, tum_frames):
         out[sensor] = {"launches": best2, "matrix_launches": matrix}
         if pub is not None:
             out[sensor]["published"] = pub.check(f"async {sensor} drive", sync=False)
+        if viewer is not None:
+            out[sensor]["viewed"] = viewer.check(f"async {sensor} drive", n)
     return out
 
 
@@ -2443,6 +2482,248 @@ def check_sor_cpu(card):
     return rel, agree
 
 
+class DriveViewer:
+    """Phase 24's Viewer on a drive: `Viewer(sys_, out_dir, stride=
+    VIEWER_STRIDE)` updated after each track_* call, outside the timed
+    call, with the host ms of each update that draws; `check` counts the
+    PNGs and reports the ms and, in async mode, the map lock's hold per
+    update."""
+
+    def __init__(self, sys_, out_dir):
+        from orb_slam2_2021_tpu_torch.viz import Viewer
+
+        self.out_dir = out_dir
+        self.viewer = Viewer(sys_, out_dir=out_dir, stride=VIEWER_STRIDE)
+        self.async_mode = sys_.async_mode
+        self.ms = []
+
+    def frame(self, image):
+        t0 = time.perf_counter()
+        drawn = self.viewer.update(image)
+        if drawn is not None:
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+
+    def check(self, label, n_frames):
+        n_drawn = -(-n_frames // VIEWER_STRIDE)
+        pngs = sorted(os.listdir(self.out_dir))
+        holds = 1e3 * np.asarray(self.viewer.lock_holds)
+        hold = (f"map lock held {np.median(holds):.3f} ms per update (median; max {holds.max():.3f})"
+                if len(holds) else "no map lock (sync)")
+        log(f"phase 24 viewer on the {label}: {len(pngs)} PNGs for {n_frames} frames at stride "
+            f"{VIEWER_STRIDE}, host ms per drawn update median {np.median(self.ms):.2f} (max "
+            f"{max(self.ms):.2f}); {hold}")
+        want = sorted(f"{kind}_{i:06d}.png" for kind in ("frame", "map")
+                      for i in range(0, n_frames, VIEWER_STRIDE))
+        if pngs != want or len(self.ms) != n_drawn:
+            raise AssertionError(f"{label} viewer wrote {pngs}, drew {len(self.ms)} updates")
+        if len(holds) != (n_drawn if self.async_mode else 0):
+            raise AssertionError(f"{label} viewer held the map lock {len(holds)} times")
+        return {"pngs": len(pngs), "ms": self.ms, "lock_hold_ms": holds.tolist()}
+
+
+def _project_lens(K, dist, R, t, obj):
+    """Board corners [M, 3] through the pose (R, t) and the Brown lens of
+    `K` (fx, fy, cx, cy) and `dist` -> pixels [M, 2]."""
+    fx, fy, cx, cy = K
+    k1, k2, p1, p2, k3 = dist
+    xc = obj @ R.T + t
+    x, y = xc[:, 0] / xc[:, 2], xc[:, 1] / xc[:, 2]
+    r2 = x * x + y * y
+    rad = 1 + k1 * r2 + k2 * r2 ** 2 + k3 * r2 ** 3
+    xd = x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return np.stack([fx * xd + cx, fy * yd + cy], axis=1)
+
+
+def calibration_views():
+    """Phase 24's stereo views: CALIB_VIEWS poses of the board (tilted up to
+    0.5 rad, its center 0.9-2.2 m away at a random place in the image),
+    kept where every corner lands inside both images; the corners projected
+    through each eye's lens, with CALIB_NOISE_PX of noise. Returns (left
+    views, right views), each a list of [M, 2] float64 arrays."""
+    from orb_slam2_2021_tpu_torch.tools.calibration import _rodrigues_np, board_points
+
+    obj = board_points(*CALIB_BOARD)
+    center = obj.mean(axis=0)
+    w, h = CALIB_SIZE
+    fx, fy, cx, cy = CALIB_LEFT_K
+    R_rl = _rodrigues_np(np.array([0.0, CALIB_TOE_RAD, 0.0]))
+    t_rl = np.array([-CALIB_BASELINE, 0.0, 0.0])
+    rng = np.random.default_rng(CALIB_SEED)
+    left, right = [], []
+    while len(left) < CALIB_VIEWS:
+        R = _rodrigues_np(rng.uniform(-0.5, 0.5, 3))
+        z = rng.uniform(0.9, 2.2)
+        u, v = rng.uniform(0.2, 0.8) * w, rng.uniform(0.2, 0.8) * h
+        t = np.array([(u - cx) / fx * z, (v - cy) / fy * z, z]) - R @ center
+        pl = _project_lens(CALIB_LEFT_K, CALIB_DIST, R, t, obj)
+        pr = _project_lens(CALIB_RIGHT_K, CALIB_DIST, R_rl @ R, R_rl @ t + t_rl, obj)
+        inside = [(p[:, 0] >= 2).all() and (p[:, 0] <= w - 3).all() and (p[:, 1] >= 2).all()
+                  and (p[:, 1] <= h - 3).all() for p in (pl, pr)]
+        if all(inside):
+            left.append(pl + rng.normal(0.0, CALIB_NOISE_PX, pl.shape))
+            right.append(pr + rng.normal(0.0, CALIB_NOISE_PX, pr.shape))
+    return left, right
+
+
+def _calibrators():
+    from orb_slam2_2021_tpu_torch.tools.calibration import StereoCalibrator
+
+    left, right = calibration_views()
+    stereo = StereoCalibrator(*CALIB_BOARD, CALIB_SIZE)
+    for vl, vr in zip(left, right):
+        stereo.add_view(vl, vr)
+    return stereo
+
+
+def _syncs_in(fn):
+    """(result, the places (file:line) of the host syncs the call made), as
+    torch's sync debug mode warns of them (its note that the mode is a
+    prototype is not one)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def lm_bound(n_views, n_pts, iters, dtype):
+    """The LM's least time: its float operations over the card's peak rate
+    (its bytes, tiny inputs and outputs, bound nothing). Per iteration:
+    JtJ and Jt r (2 * rows * P^2 and 2 * rows * P), the LU solve (2/3 P^3),
+    two residuals and the forward-mode Jacobian (P + 2 evaluations of about
+    60 operations a corner)."""
+    P, rows = 9 + 6 * n_views, 2 * n_views * n_pts
+    ops = iters * (2 * rows * P * P + 2 * rows * P + 2 * P ** 3 / 3 + (P + 2) * 60 * n_views * n_pts)
+    rate = H100_FP32_FLOPS_PER_S if dtype == torch.float32 else H100_FP64_TENSOR_FLOPS_PER_S
+    return 1e3 * ops / rate, "operations"
+
+
+def _k_params(K):
+    return np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]])
+
+
+def check_calibration(dev, work):
+    """Phase 24, calibration on the card: the LM of the left eye's 60 views
+    (device ms by CUDA events, launches, host syncs inside the iterations)
+    in float32 and float64; the stereo solve through StereoCalibrator on the
+    card against the truth; its YAML through rectification_from_yaml and a
+    pair remapped on the card against the CPU path."""
+    from orb_slam2_2021_tpu_torch.io.rectify import rectification_from_yaml, remap
+    from orb_slam2_2021_tpu_torch.tools import calibration as cal
+
+    stereo = _calibrators()
+    mono = stereo.left
+    V, M = len(mono.views), len(mono.obj)
+    probe = torch.ones(4, device=dev)
+    if len(_syncs_in(lambda: probe.sum().item())[1]) != 1:  # the counter sees a readback
+        raise AssertionError("the sync debug mode did not report a .item() readback")
+    lm = {}
+    default = cal.CALIB_DTYPE
+    try:
+        for dtype in (torch.float32, torch.float64):
+            cal.CALIB_DTYPE = dtype
+            inputs = mono.lm_inputs(dev)
+            run = lambda: cal.lm_refine(*inputs)  # noqa: E731
+            run()
+            (theta, rms), ms = _event_ms(run)
+            _, launches, kern_ms = _kernels_in(run)
+            _, where = _syncs_in(run)
+            syncs = len(where)
+            bound, by = lm_bound(V, M, 30, dtype)
+            name = str(dtype).split(".")[-1]
+            lm[name] = {"ms": ms, "kernel_ms": kern_ms, "launches": launches, "syncs": syncs,
+                        "bound_ms": bound, "theta": theta.cpu().numpy().astype(np.float64),
+                        "rms": float(rms)}
+            log(f"phase 24 calibration LM {name}, {V} views x {M} corners, 30 iterations on the card: "
+                f"{ms:.3f} ms (CUDA events), {kern_ms:.3f} ms of kernels, {launches} launches "
+                f"(profiler), {syncs} host syncs inside (sync debug mode), 1 readback a solve; "
+                f"bound {bound:.4f} ms by {by}; rms {float(rms):.4f} px")
+            if syncs:
+                raise AssertionError(f"the {name} LM synced with the host at {where}")
+    finally:
+        cal.CALIB_DTYPE = default
+    _, where = _syncs_in(lambda: mono.calibrate(device=dev))
+    calib_syncs = len(where)
+    t0 = time.perf_counter()
+    card = stereo.calibrate(device=dev)
+    stereo_s = time.perf_counter() - t0
+    truth = {"left": np.array(CALIB_LEFT_K), "right": np.array(CALIB_RIGHT_K)}
+    errs = {eye: np.abs(_k_params(getattr(card, eye).K) - truth[eye]) for eye in truth}
+    log(f"phase 24 calibration on the card ({str(default).split('.')[-1]}): MonoCalibrator.calibrate "
+        f"made {calib_syncs} host syncs (3 uploads, 1 readback); StereoCalibrator.calibrate "
+        f"{1e3 * stereo_s:.1f} ms (host clock); K (fx, fy, cx, cy) left "
+        f"{np.round(_k_params(card.left.K), 3).tolist()}, right "
+        f"{np.round(_k_params(card.right.K), 3).tolist()}, off the truth by up to "
+        f"{max(e.max() for e in errs.values()):.3f} px (bound {CALIB_TRUTH_PX}); k1 "
+        f"{card.left.dist[0]:.4f} / {card.right.dist[0]:.4f} (truth {CALIB_DIST[0]}); rms "
+        f"{card.left.rms:.4f} / {card.right.rms:.4f} px (bound {CALIB_RMS_MAX}); baseline "
+        f"{card.baseline:.5f} m (truth {CALIB_BASELINE})")
+    if max(e.max() for e in errs.values()) > CALIB_TRUTH_PX:
+        raise AssertionError(f"calibration K off the truth by {errs}")
+    if max(card.left.rms, card.right.rms) > CALIB_RMS_MAX:
+        raise AssertionError(f"calibration rms {card.left.rms}, {card.right.rms}")
+    if abs(card.baseline - CALIB_BASELINE) > CALIB_BASELINE_TOL:
+        raise AssertionError(f"calibration baseline {card.baseline}")
+    path = os.path.join(work, "calibrated.yaml")
+    with open(path, "w") as f:
+        f.write(cal.stereo_yaml(card))
+    maps = rectification_from_yaml(path)
+    pair = np.random.default_rng(CALIB_SEED).integers(0, 256, (2, CALIB_SIZE[1], CALIB_SIZE[0]),
+                                                      dtype=np.uint8)
+    on_card = [remap(torch.from_numpy(img).to(dev), m, dev) for img, m in zip(pair, maps)]
+    _require_on_card(on_card, "remap")
+    err = max(float((g.cpu() - remap(img, m, "cpu")).abs().max()) for g, img, m in zip(on_card, pair, maps))
+    log(f"phase 24 stereo_yaml -> rectification_from_yaml -> remap of a pair: card vs CPU max |diff| "
+        f"{err:.2e} (bound {RECTIFY_TOL})")
+    if err > RECTIFY_TOL:
+        raise AssertionError(f"calibrated remap card vs CPU differs by {err}")
+    return {"lm": lm, "card": card, "mono": mono}
+
+
+def check_calibration_cpu(card):
+    """Phase 24's CPU half: the left eye's LM on the CPU in float64 and
+    float32 against the card's solves; the card's in CALIB_DTYPE must be
+    within CALIB_K_TOL px (K) and CALIB_RMS_TOL px (rms) of the CPU's
+    float64."""
+    from orb_slam2_2021_tpu_torch.tools import calibration as cal
+
+    mono = card["mono"]
+    default = cal.CALIB_DTYPE
+    cpu = {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            cal.CALIB_DTYPE = dtype
+            cpu[str(dtype).split(".")[-1]] = mono.calibrate(device="cpu")
+    finally:
+        cal.CALIB_DTYPE = default
+    rows = []
+    for name, lm in card["lm"].items():
+        res = mono.result(lm["theta"], lm["rms"])
+        for ref in ("float64", "float32"):
+            dk = np.abs(_k_params(res.K) - _k_params(cpu[ref].K)).max()
+            dd = np.abs(res.dist - cpu[ref].dist).max()
+            drms = abs(res.rms - cpu[ref].rms)
+            rows.append((name, ref, dk, dd, drms))
+            log(f"phase 24 calibration LM, card {name} vs CPU {ref}: K {dk:.2e} px, dist {dd:.2e}, "
+                f"rms {drms:.2e} px (bounds {CALIB_K_TOL} px, {CALIB_RMS_TOL} px)")
+    dk = np.abs(_k_params(cpu["float32"].K) - _k_params(cpu["float64"].K)).max()
+    log(f"phase 24 calibration LM, CPU float32 vs CPU float64: K {dk:.2e} px, rms "
+        f"{abs(cpu['float32'].rms - cpu['float64'].rms):.2e} px")
+    kept = str(cal.CALIB_DTYPE).split(".")[-1]
+    for name, ref, dk, _, drms in rows:
+        if name == kept and ref == "float64" and (dk > CALIB_K_TOL or drms > CALIB_RMS_TOL):
+            raise AssertionError(f"the card's {name} LM is {dk} px (K) and {drms} px (rms) off the "
+                                 f"CPU's float64 solve")
+
+
 def _best2_by_thread():
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
 
@@ -2460,7 +2741,8 @@ def main():
 
 def run(work):
     """Every phase, in the order the module's docstring gives; `work` holds
-    the files phases hand on (phase 11's map, phase 23's outputs)."""
+    the files phases hand on (phase 11's map, the outputs of phases 23 and
+    24)."""
     sys.path.insert(0, REPO)
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
     dev = torch.device("cuda:0")
@@ -2483,7 +2765,8 @@ def run(work):
     err, mapping_times = check_hamming_mapping_shapes(dev)
     max_err = max(max_err, err)
     times.update(mapping_times)
-    mapping = drive_kitti_mapping(dev, frames, gt, publish=True)
+    mapping = drive_kitti_mapping(dev, frames, gt, publish=True,
+                                  viz_dir=os.path.join(work, "viz_mapping"))
     unit_ms = check_loop_numerics(dev)
     map_path = os.path.join(work, "orbit_map.npz")
     loop = drive_kitti_default(dev, frames, gt, map_path)
@@ -2502,7 +2785,7 @@ def run(work):
     times.update(sensor_times)
     bench = drive_async_bench(dev, frames, gt, loop["ms"])
     close = drive_tum_close(dev, close_frames, close_gt)
-    async_sensors = drive_async_sensors(dev, close_frames, tum_frames)
+    async_sensors = drive_async_sensors(dev, close_frames, tum_frames, os.path.join(work, "viz_async"))
     dense_unit = check_dense_ba_unit(dev, mapping.pop("system"))
     dense = drive_kitti_mapping(dev, frames, gt, dense=True)
     dense.pop("system")
@@ -2517,6 +2800,9 @@ def run(work):
     mproc = check_map_processor(dev, map_path, os.path.join(work, "map_card"))
     sor = check_sor(dev, corridor)
     log(f"phase 23 on the card: {time.perf_counter() - t23:.1f} s")
+    t24 = time.perf_counter()
+    calib = check_calibration(dev, work)
+    log(f"phase 24 on the card: {time.perf_counter() - t24:.1f} s")
     # phase 22's two ranks run in processes of their own while this one
     # holds the CUDA drives of phases 4, 7, 10 and 14 against the CPU path,
     # which report no times, on half of the CPU threads
@@ -2532,6 +2818,9 @@ def run(work):
         check_map_processor_cpu(mproc, map_path, os.path.join(work, "map_cpu"))
         check_sor_cpu(sor)
         log(f"phase 23, the CPU halves: {time.perf_counter() - t23:.1f} s")
+        t24 = time.perf_counter()
+        check_calibration_cpu(calib)
+        log(f"phase 24, the CPU half: {time.perf_counter() - t24:.1f} s")
         live = finish_dist_live(started, loop["ms"])
     finally:
         stop_dist_live(started)

@@ -27,6 +27,8 @@ from .optim.assemble import upload_problem
 from .optim.ba import BAProblem
 from .optim.sim3_opt import PoseGraph
 from .pipeline.mapping_steps import KFView
+from .place.vocab import BinaryVocabulary
+from .tools.calibration import MonoCalibration, StereoCalibration
 
 
 def tensor(a, device, dtype=None) -> torch.Tensor:
@@ -184,3 +186,20 @@ def map_store_from_reference(store) -> MapStore:
             continue
         setattr(out, name, value.copy() if isinstance(value, np.ndarray) else copy.deepcopy(value))
     return out
+
+
+def vocabulary_from_reference(voc) -> BinaryVocabulary:
+    """A reference BinaryVocabulary -> the port's, with copies of its tree
+    and idf."""
+    return BinaryVocabulary(int(voc.k), int(voc.L), _host(voc.node_desc, np.uint32),
+                            _host(voc.word_idf, np.float32))
+
+
+def calibration_from_reference(calib):
+    """A reference MonoCalibration or StereoCalibration -> the port's, field
+    by field (arrays copied; a stereo result's eyes converted too)."""
+    def rebuild(cls, obj):
+        return cls(**{f.name: (rebuild(MonoCalibration, v) if f.name in ("left", "right")
+                               else v.copy() if isinstance(v, np.ndarray) else copy.deepcopy(v))
+                      for f in dataclasses.fields(cls) for v in (getattr(obj, f.name),)})
+    return rebuild(StereoCalibration if hasattr(calib, "left") else MonoCalibration, calib)

@@ -26,6 +26,11 @@ class PinholeCamera(NamedTuple):
         f = lambda v: float(np.float32(v))  # noqa: E731
         return PinholeCamera(f(fx), f(fy), f(cx), f(cy), f(bf), int(width), int(height))
 
+    @property
+    def baseline(self) -> float:
+        """bf / fx, divided in float32 as the reference's scalars are."""
+        return float(np.float32(self.bf) / np.float32(self.fx))
+
 
 def _inv_z(z):
     return 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
@@ -45,3 +50,10 @@ def project_stereo(cam: PinholeCamera, xc):
     uv, z = project_mono(cam, xc)
     ur = uv[..., 0] - cam.bf * _inv_z(z)
     return torch.cat([uv, ur[..., None]], dim=-1), z
+
+
+def backproject(cam: PinholeCamera, uv, z):
+    """Pixels [..., 2] and depth [...] -> camera-frame points [..., 3]."""
+    x = (uv[..., 0] - cam.cx) * z / cam.fx
+    y = (uv[..., 1] - cam.cy) * z / cam.fy
+    return torch.stack([x, y, z], dim=-1)

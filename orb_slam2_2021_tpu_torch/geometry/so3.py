@@ -1,4 +1,4 @@
-"""SO(3) exp and log maps and the rotation-to-quaternion map (counterpart of
+"""SO(3) exp and log maps and the quaternion maps (counterpart of
 orb_slam2_2021_tpu/geometry/so3.py)."""
 
 from __future__ import annotations
@@ -106,3 +106,18 @@ def rot_to_quat(R):
         n2 = (q[..., i].double() * q[..., i].double() + n2.double()).to(q.dtype)
     q = q / (torch.sqrt(n2)[..., None] + _EPS)
     return q * torch.sign(q[..., :1] + _EPS)
+
+
+def quat_to_rot(q):
+    """[..., 4] quaternion (w, x, y, z) -> [..., 3, 3] rotation (q is
+    normalized first)."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )

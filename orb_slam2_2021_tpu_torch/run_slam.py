@@ -21,8 +21,8 @@ Options:
   --publish        NDJSON TCP pub/sub of os2_pose / os2_pointcloud / os2_gm /
                    os2_gm_pose / os2_metrics in the synthetic and kitti modes
                    (prints the port; subscribe with e.g. `nc 127.0.0.1 <port>`)
-  --viz <dir>      the viewer is not ported yet (ROADMAP.md queue 1) and
-                   raises NotImplementedError
+  --viz <dir>      write the frame overlay and the top-down map as PNGs to
+                   <dir> every 5th frame (frame_NNNNNN.png, map_NNNNNN.png)
 """
 
 from __future__ import annotations
@@ -49,8 +49,21 @@ def _setup_publisher(sys_):
     return spub, tcp
 
 
-def _publish(spub, ts, i):
-    """The frame's pose and metrics; the map every 10 frames."""
+def _setup_viewer(sys_):
+    """The Viewer of --viz <dir> (every 5th frame), or None without the flag."""
+    out_dir = _flag_value("--viz")
+    if out_dir is None:
+        return None
+    from .viz.viewer import Viewer
+
+    return Viewer(sys_, out_dir=out_dir, stride=5)
+
+
+def _per_frame_outputs(viewer, spub, image, ts, i):
+    """The viewer's images of the frame just tracked; with --publish, the
+    frame's pose and metrics, and the map every 10 frames."""
+    if viewer is not None:
+        viewer.update(image)
     if spub is not None:
         spub.publish_frame(ts)
         if i % 10 == 0:
@@ -97,8 +110,6 @@ class Pacer:
 
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "synthetic"
-    if "--viz" in sys.argv:
-        raise NotImplementedError("--viz: the viewer (viz/) is not ported yet (ROADMAP.md queue 1)")
     device = _flag_value("--device") or "cuda"
     kw = {"profile_dir": _flag_value("--profile"), "async_mode": "--async" in sys.argv,
           "device": device}
@@ -117,12 +128,13 @@ def main():
         world = SyntheticStereoWorld(cfg, seed=3)
         gt = forward_trajectory(n, step=0.12)
         sys_ = System(cfg, **kw)
+        viewer = _setup_viewer(sys_)
         spub, tcp = _setup_publisher(sys_)
         for i, (R, t) in enumerate(gt):
             left, right = world.render(R, t)
             pacer.wait(i * 0.1)
             sys_.track_stereo(left, right, timestamp=i * 0.1)
-            _publish(spub, i * 0.1, i)
+            _per_frame_outputs(viewer, spub, left, i * 0.1, i)
             print(f"frame {i:04d}: {sys_.tracker.state.name} inliers={sys_.tracker.n_inliers_last} "
                   f"kf={sys_.map.n_kf}")
         sys_.shutdown()
@@ -138,11 +150,12 @@ def main():
 
         seq = KittiStereoSequence(sys.argv[2], max_frames=500 if "--reduced" in sys.argv else None)
         sys_ = System(kitti_stereo_config(), **kw)
+        viewer = _setup_viewer(sys_)
         spub, tcp = _setup_publisher(sys_)
         for i, (ts, left, right) in enumerate(seq):
             pacer.wait(ts)
             sys_.track_stereo(left, right, timestamp=ts)
-            _publish(spub, ts, i)
+            _per_frame_outputs(viewer, spub, left, ts, i)
         sys_.shutdown()
     elif mode == "tum":
         from .io.datasets import TumRgbdSequence
@@ -156,9 +169,11 @@ def main():
             if p in sys.argv[2]:
                 preset = p
         sys_ = System(tum_rgbd_config(preset), sensor="rgbd", **kw)
-        for ts, rgb, depth in seq:
+        viewer = _setup_viewer(sys_)
+        for i, (ts, rgb, depth) in enumerate(seq):
             pacer.wait(ts)
             sys_.track_rgbd(rgb, depth, timestamp=ts)
+            _per_frame_outputs(viewer, None, rgb, ts, i)
         sys_.shutdown()
     else:
         raise SystemExit(__doc__)

@@ -122,9 +122,12 @@ def test_run_slam_writes_its_files(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--viz"])  # --publish runs: tests/test_torch_io.py
-def test_run_slam_refuses_unported_outputs(monkeypatch, flag):
+def test_run_slam_refuses_unported_outputs(monkeypatch, tmp_path, flag):
+    """No output flag is refused any more: --viz, the last one ported, writes
+    the viewer's PNGs (tests/test_torch_viz.py holds the images)."""
     from orb_slam2_2021_tpu_torch import run_slam
 
-    monkeypatch.setattr(sys, "argv", ["run_slam", "synthetic", "2", flag, "out"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_slam.main()
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["run_slam", "synthetic", "2", flag, "out", "--device", "cpu"])
+    run_slam.main()
+    assert sorted(os.listdir(tmp_path / "out")) == ["frame_000000.png", "map_000000.png"]
