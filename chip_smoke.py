@@ -112,13 +112,27 @@ Phases (any failure exits nonzero before the result lines are printed):
      remapped on the card against the CPU path, and the card's LM against
      the CPU's in float64 and float32; the headless Viewer (stride 5) on
      phase 8's sync drive (PNGs, host ms per update) and phase 17's async
-     RGB-D drive (the map lock's hold per update).
+     RGB-D drive (the map lock's hold per update: the copy of the rows in
+     use);
+ 25. the scale proof's twin, scripts/torch_scale_1500kf.py, at full size on
+     the card: the reference script's corridor map grown through the port's
+     map paths (1,442 keyframes, 487,577 points, 570,794 observations, the
+     reference script's counts on this tree), one global-BA assembly and
+     three gba_iteration steps (ms by CUDA events, one-hot bytes), the
+     essential graph over every keyframe (ms, launches, edges, incidence
+     bytes, the host write-back), no cost rising, poses finite, peak memory;
+     hamming_matrix launches 0;
+ 26. bench_torch's front-end microloop at KITTI width (the frame build and
+     the motion-only track step, 30 steps back to back): frames/s, ms and
+     launches a step, hamming_best2's launches; the fused launcher held and
+     timed at the step's own two matcher inputs; one step on the card
+     against the CPU.
 
 The run's order differs from the numbering: phase 22 runs in processes of
 its own while the main process holds the CUDA-vs-CPU checks of phases 4,
-7, 10 and 14 and phase 23's and phase 24's CPU halves (which report no times), after
-phase 21 and the card checks of phases 23 and 24; phase 24's viewer runs on
-the drives of phases 8 and 17; phase 18 runs last.
+7, 10 and 14 and the CPU halves of phases 23, 24 and 26 (which report no
+times), after phase 21 and the card checks of phases 23 to 26; phase 24's
+viewer runs on the drives of phases 8 and 17; phase 18 runs last.
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -285,6 +299,22 @@ CALIB_BASELINE_TOL = 0.01  # m
 # solve of the same views: K (fx, fy, cx, cy) in px, the rms in px
 CALIB_K_TOL, CALIB_RMS_TOL = 0.05, 1e-3
 VIEWER_STRIDE = 5          # run_slam.py --viz's stride
+# phase 25, the scale proof's twin (scripts/torch_scale_1500kf.py) at the
+# reference script's default of 1,500 keyframes asked for. The final counts
+# are those scripts/scale_1500kf.py gives on this tree's reference code (CPU),
+# which the twin's CPU test holds at 100 keyframes: SCALE_1500KF.json's
+# 487,556 points were recorded before the reference's add_keyframe began
+# re-validating bindings of culled points (its keyframes and observations
+# are unchanged)
+TWIN_REQUEST = 1500
+TWIN_KF, TWIN_PTS, TWIN_OBS = 1442, 487577, 570794
+RECORD_KF, RECORD_PTS, RECORD_OBS = 1442, 487556, 570794  # SCALE_1500KF.json
+# phase 26, bench_torch's front-end microloop at KITTI width, one step on the
+# card against the same step on the CPU: the pose in m and rad, and the match
+# and inlier counts within the lane's descriptor rate (97% of descriptors
+# identical, tests/test_torch_frame.py; hazard 3 flips descriptor bits)
+FRONTEND_POSE_TOL = 1e-4
+FRONTEND_COUNT_RATE = 0.03
 
 
 T_START = time.perf_counter()
@@ -2724,6 +2754,126 @@ def check_calibration_cpu(card):
                                  f"CPU's float64 solve")
 
 
+def check_scale_twin(dev):
+    """Phase 25: scripts/torch_scale_1500kf.py at full size on the card: the
+    corridor map grown through the port's map paths (the final counts the
+    reference script's), one global-BA assembly and three gba_iteration
+    steps, the essential graph over every keyframe and its host write-back;
+    no cost may rise, every pose finite; logs the curves, the ms, the
+    launches, the graph's sizes and the peak memory."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_scale_1500kf as twin
+
+    torch.cuda.empty_cache()
+    _zero_launch_counts()
+    rec = twin.run(TWIN_REQUEST, dev, log=lambda msg: log(f"phase 25 {msg}"))
+    best2, matrix = _launch_counts()
+    gba, eg = rec["gba"], rec["essential_graph"]
+    counts = (rec["n_kf_final"], rec["n_mp_final"], rec["n_obs_final"])
+    log(f"phase 25 scale twin, {TWIN_REQUEST} keyframes asked for: {counts[0]} keyframes, {counts[1]} "
+        f"points, {counts[2]} observations (the reference script on this tree: {TWIN_KF}, {TWIN_PTS}, "
+        f"{TWIN_OBS}; SCALE_1500KF.json: {RECORD_KF}, {RECORD_PTS}, {RECORD_OBS}); growth "
+        f"{rec['grow_s']:.2f} s; curve rows (n_kf, n_mp, ms add_kf, ms loop candidates, ms snapshot, "
+        f"ms cull) {[(r['n_kf'], r['n_mp'], round(r['ms_add_kf'], 3), round(r['ms_loop_candidates'], 3), round(r['ms_snapshot'], 3), round(r['ms_kf_cull'], 3)) for r in rec['curves']]}")
+    log(f"phase 25 global BA at C={gba['C']}, P={gba['P']}, O={gba['O']} (padded {gba['C_pad']}/"
+        f"{gba['P_pad']}/{gba['O_pad']}): assembly {gba['assemble_s']:.2f} s, upload "
+        f"{gba['upload_s']:.2f} s, flat index {gba['flat_index_ms']:.1f} ms, one-hot "
+        f"{gba['onehot_bytes'] / 1e9:.2f} GB; iterations {[round(x, 2) for x in gba['iter_ms']]} ms (CUDA "
+        f"events), candidate costs {gba['costs']}, robust cost {gba['cost_before']:.6e} -> "
+        f"{gba['cost_after']:.6e} ({'fell' if gba['cost_after'] < gba['cost_before'] else 'stayed'}), "
+        f"lambda {gba['lam']:.3g}")
+    log(f"phase 25 essential graph over K={eg['K']} keyframes (padded {eg['K_pad']}), E={eg['E']} edges "
+        f"(padded {eg['E_pad']}): {eg['s']:.3f} s in all, solve {eg['solve_ms']:.1f} ms (CUDA events), "
+        f"{eg['launches']} launches (profiler, one more solve, counted in {eg['launch_count_s']:.1f} s), incidence [E, K] x 2 "
+        f"{eg['incidence_bytes'] / 1e6:.1f} MB, write-back over {eg['n_points']} points "
+        f"{eg['writeback_s']:.3f} s (host), edge cost {eg['cost_before']:.6e} -> {eg['cost_after']:.6e}; "
+        f"peak device memory {rec['peak_memory_bytes'] / 1e9:.2f} GB; whole twin {rec['total_s']:.1f} s; "
+        f"hamming_best2 launches {best2}, hamming_matrix launches {matrix}")
+    if counts != (TWIN_KF, TWIN_PTS, TWIN_OBS):
+        raise AssertionError(f"the scale twin's map has {counts}, the reference script's "
+                             f"{(TWIN_KF, TWIN_PTS, TWIN_OBS)}")
+    if not (np.isfinite(gba["costs"]).all() and gba["cost_after"] <= gba["cost_before"]):
+        raise AssertionError(f"the scale twin's global BA: costs {gba['costs']}, "
+                             f"{gba['cost_before']} -> {gba['cost_after']}")
+    if not (np.isfinite(eg["cost_after"]) and eg["cost_after"] <= eg["cost_before"]):
+        raise AssertionError(f"the essential graph's edge cost rose: {eg['cost_before']} -> {eg['cost_after']}")
+    if not rec["poses_finite"] or not eg["launches"] or matrix != 0:
+        raise AssertionError(f"scale twin: poses finite {rec['poses_finite']}, essential-graph launches "
+                             f"{eg['launches']}, hamming_matrix launches {matrix}")
+    return {"matrix_launches": matrix, "best2_launches": best2, "record": rec}
+
+
+def check_frontend_microloop(dev):
+    """Phase 26, on the card: bench_torch's front-end microloop at KITTI
+    width (frontend_extra: 30 steps back to back after a warm-up, one fence,
+    and one profiled step), counting hamming_best2's launches; then one more
+    step whose two matcher calls (the stereo band, match_last_frame's
+    radius-7 window) are captured, and the fused launcher held and timed at
+    exactly those inputs. Returns the step's result for the CPU half."""
+    import bench_torch
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.frontend import frame, matchers
+
+    cfg = kitti_stereo_config()
+    _zero_launch_counts()
+    extra = bench_torch.frontend_extra(cfg, dev, lean=False)
+    best2, matrix = _launch_counts()
+    log(f"phase 26 front-end microloop at {cfg.width}x{cfg.height}: {extra['frontend_fps']} frames/s, "
+        f"{extra['frontend_ms_per_step']} ms a step (host clock over {bench_torch.FRONTEND_STEPS} steps, "
+        f"one fence), {extra['frontend_launches_per_step']} launches a step (profiler)")
+    _check_drive_launches("front-end microloop", best2, matrix)
+    step, inputs = bench_torch.frontend_step(cfg, dev)
+    seen = {}
+    undo = (frame.hamming_best2, matchers.hamming_best2)
+
+    def capture(where, fn):
+        def call(a, b, mask):
+            seen.setdefault(where, (a, b, mask))
+            return fn(a, b, mask)
+        return call
+
+    frame.hamming_best2 = capture("stereo", undo[0])
+    matchers.hamming_best2 = capture("last_frame", undo[1])
+    try:
+        out = [x.cpu() for x in step(*inputs)]
+    finally:
+        frame.hamming_best2, matchers.hamming_best2 = undo
+    max_err, times = 0, {}
+    for where, (a, b, mask) in seen.items():
+        label = f"front-end microloop {where} {a.shape[0]}x{b.shape[0]}, {float(mask.float().mean()):.4f} open"
+        max_err = max(max_err, hold_hamming(a, b, mask, label))
+        times[f"frontend_{where}"] = time_hamming(a, b, mask, label)
+    if sorted(seen) != ["last_frame", "stereo"]:
+        raise AssertionError(f"the microloop step reached hamming_best2 at {sorted(seen)}")
+    return {"extra": extra, "launches": best2, "matrix_launches": matrix, "step": out,
+            "max_err": max_err, "times": times}
+
+
+def check_frontend_microloop_cpu(card):
+    """Phase 26's CPU half: the same step on the CPU; the card's pose within
+    FRONTEND_POSE_TOL (m, rad) and its match and inlier counts within
+    FRONTEND_COUNT_RATE."""
+    import math
+
+    import bench_torch
+    from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+
+    step, inputs = bench_torch.frontend_step(kitti_stereo_config(), "cpu")
+    R, t, _, _, n_in, n_m = step(*inputs)
+    Rg, tg, _, _, n_in_g, n_m_g = card["step"]
+    dt = float((tg - t).abs().max())
+    cos = (float(torch.trace(Rg.double().T @ R.double())) - 1.0) / 2.0
+    dr = math.acos(max(-1.0, min(1.0, cos)))
+    counts = [(int(n_m_g), int(n_m)), (int(n_in_g), int(n_in))]
+    ok = all(abs(a - b) <= math.ceil(FRONTEND_COUNT_RATE * max(a, b)) for a, b in counts)
+    log(f"phase 26 microloop step, card vs CPU: t {dt:.2e} m, R {dr:.2e} rad (bound {FRONTEND_POSE_TOL}); "
+        f"(matched, inliers) card {counts[0][0]}, {counts[1][0]}, CPU {counts[0][1]}, {counts[1][1]} "
+        f"(within {FRONTEND_COUNT_RATE:.0%})")
+    if dt > FRONTEND_POSE_TOL or dr > FRONTEND_POSE_TOL or not ok:
+        raise AssertionError(f"the microloop step on the card parts from the CPU's: t {dt}, R {dr}, "
+                             f"counts {counts}")
+
+
 def _best2_by_thread():
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
 
@@ -2803,6 +2953,14 @@ def run(work):
     t24 = time.perf_counter()
     calib = check_calibration(dev, work)
     log(f"phase 24 on the card: {time.perf_counter() - t24:.1f} s")
+    t25 = time.perf_counter()
+    twin = check_scale_twin(dev)
+    log(f"phase 25: {time.perf_counter() - t25:.1f} s")
+    t26 = time.perf_counter()
+    frontend = check_frontend_microloop(dev)
+    max_err = max(max_err, frontend["max_err"])
+    times.update(frontend["times"])
+    log(f"phase 26 on the card: {time.perf_counter() - t26:.1f} s")
     # phase 22's two ranks run in processes of their own while this one
     # holds the CUDA drives of phases 4, 7, 10 and 14 against the CPU path,
     # which report no times, on half of the CPU threads
@@ -2821,6 +2979,9 @@ def run(work):
         t24 = time.perf_counter()
         check_calibration_cpu(calib)
         log(f"phase 24, the CPU half: {time.perf_counter() - t24:.1f} s")
+        t26 = time.perf_counter()
+        check_frontend_microloop_cpu(frontend)
+        log(f"phase 26, the CPU half: {time.perf_counter() - t26:.1f} s")
         live = finish_dist_live(started, loop["ms"])
     finally:
         stop_dist_live(started)
@@ -2846,7 +3007,8 @@ def run(work):
             "launches_async_rgbd_drive": async_sensors["rgbd"]["launches"],
             "launches_async_mono_drive": async_sensors["mono"]["launches"],
             "launches_dense_mapping_drive": dense["launches"],
-            "launches_dist_live_drive": live["launches"]}),
+            "launches_dist_live_drive": live["launches"],
+            "launches_frontend_microloop": frontend["launches"]}),
             ("hamming_matrix", {  # no main-path caller is left: each drive asserts 0
                 "launches": loop["matrix_launches"],
                 "launches_mapping_drive": mapping["matrix_launches"],
@@ -2859,7 +3021,9 @@ def run(work):
                 "launches_async_rgbd_drive": async_sensors["rgbd"]["matrix_launches"],
                 "launches_async_mono_drive": async_sensors["mono"]["matrix_launches"],
                 "launches_dense_mapping_drive": dense["matrix_launches"],
-                "launches_dist_live_drive": live["matrix_launches"]})):
+                "launches_dist_live_drive": live["matrix_launches"],
+                "launches_frontend_microloop": frontend["matrix_launches"],
+                "launches_scale_twin": twin["matrix_launches"]})):
         head = times["lane"][name]  # the local-point search's shape, 4096 x 2000
         kernels.append({"name": name, **common, **launches,
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

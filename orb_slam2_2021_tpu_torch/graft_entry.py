@@ -7,7 +7,8 @@
   one landmark-sharded BA step, a data-parallel ORB extraction of its own
   image, and then rank 0 running LoopClosing._run_global_ba over a small
   real map with the group wired in (a GbaClient) while the other ranks
-  serve it (GbaServer).
+  serve it (GbaServer); after the group is destroyed each rank lists what
+  still holds it (`group_holders`, empty when nothing does).
 
     python -m orb_slam2_2021_tpu_torch.graft_entry [--ranks N] [--device cuda|cpu]
 
@@ -126,7 +127,26 @@ def _rank_main(rank: int, world: int, rendezvous: str, work_dir: str, device: st
         out["gba_served"] = GbaServer(group, cfg_map.optim, camera_from_config(cfg_map), work_dir,
                                       dev).serve_forever()
     finish_process(group)
+    del group
+    out["group_holders"] = _group_holders()
     return out
+
+
+def _group_holders() -> list:
+    """Type names of the objects the garbage collector tracks that still
+    hold the process group: a GbaClient or GbaServer, or anything that
+    refers to a ProcessGroup. No collection runs before this, so garbage
+    that a cycle keeps (which the interpreter would destroy at exit) counts
+    too."""
+    import gc
+
+    import torch.distributed as dist
+
+    from .parallel.gba_service import GbaClient, GbaServer
+
+    return [type(o).__name__ for o in gc.get_objects()
+            if type(o) in (GbaClient, GbaServer)
+            or any(issubclass(type(r), dist.ProcessGroup) for r in gc.get_referents(o))]
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> list:

@@ -69,6 +69,11 @@ class _LockstepGBA:
         self.world = dist.get_world_size(group)
         self._step = make_dist_gba_iteration(cfg_optim, cam, group)
 
+    def close(self):
+        """Drop every reference to the group (its own and the iteration's
+        closure); no collective may follow."""
+        self.group = self._step = None
+
     def run(self, idx: int, prob_np: BAProblem, n_iters: int, leader: bool,
             should_stop: Optional[Callable[[], bool]] = None,
             iter_times: Optional[List[float]] = None):
@@ -144,14 +149,17 @@ class GbaClient(_LockstepGBA):
                         iter_times=iter_times)
 
     def shutdown(self):
-        """Tell the servers to return."""
+        """Tell the servers to return, and drop the group: the client
+        solves nothing more, and a System that still holds it must not keep
+        the process group alive past its destruction."""
         _write_marker(os.path.join(self.work_dir, "shutdown.json"), {})
+        self.close()
 
 
 class GbaServer(_LockstepGBA):
     """A follower rank: solves each shipped problem with the leader until
-    the leader posts shutdown. `serve_forever` returns the number solved
-    (stopped ones included)."""
+    the leader posts shutdown. `serve_forever` then drops the group and
+    returns the number solved (stopped ones included)."""
 
     def serve_forever(self, poll: float = 0.01) -> int:
         idx = 0
@@ -164,5 +172,6 @@ class GbaServer(_LockstepGBA):
                 idx += 1
                 continue
             if os.path.exists(shut):
+                self.close()
                 return idx
             time.sleep(poll)

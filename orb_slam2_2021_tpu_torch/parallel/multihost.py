@@ -14,7 +14,6 @@ Nothing here reads a cluster description: the caller gives the rendezvous
 
 from __future__ import annotations
 
-import gc
 import subprocess
 import tempfile
 import time
@@ -45,12 +44,11 @@ def init_process(init_method: str, world_size: int, rank: int, device="cuda",
 
 
 def finish_process(group):
-    """Leave the group: wait for every rank, free the objects no longer
-    reachable (a System's reference cycles can hold the group), then
-    destroy it, so it is torn down now rather than while the interpreter
-    exits."""
+    """Leave the group: wait for every rank, then destroy it, so it is torn
+    down now rather than while the interpreter exits. The group's other
+    holders drop it by themselves first (`GbaClient.shutdown`, the end of
+    `GbaServer.serve_forever`); no reference cycle may hold it."""
     dist.barrier(group)
-    gc.collect()
     dist.destroy_process_group()
 
 

@@ -38,6 +38,7 @@ iterations, and the same write-back rules hold.
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import deque
@@ -101,7 +102,9 @@ class LoopClosing:
         self.n_loops = 0
         self.local_mapper = None
         self._gen = torch.Generator().manual_seed(cfg.orb.n_features)
-        self.sampler = lambda valid, m, n_hyps: sample_indices(valid, m, n_hyps, self._gen)
+        # a partial, not a lambda over self: a LoopClosing in a reference cycle
+        # would keep its dist_gba's process group alive until a collection
+        self.sampler = functools.partial(sample_indices, generator=self._gen)
         self.gba_iter_times: List[float] = []
         # host-clock seconds of the last closed loop's stages
         self.loop_times: Dict[str, float] = {}

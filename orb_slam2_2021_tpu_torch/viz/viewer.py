@@ -9,8 +9,11 @@ publishes them on a message bus (topic "os2_viz") if given.
 
 In async mode the mapping worker writes the map store in place, so each
 update copies what the drawers read under the map lock and draws outside
-it; `lock_holds` keeps the seconds each copy held the lock. A synchronous
-System's map is drawn as it stands.
+it: the keyframe rows up to `next_kf`, the map-point rows up to `next_mp`
+and covisibility's [next_kf, next_kf] corner, not the store's whole
+capacity (no id at or past those counters is valid); `lock_holds` keeps the
+seconds each copy held the lock. A synchronous System's map is drawn as it
+stands.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from .draw import write_png
 from .frame_drawer import FrameDrawer
 from .map_drawer import MapDrawer
 
-# the port's map-store arrays the drawers read
-_MAP_ARRAYS = ("mp_pos", "mp_valid", "kf_valid", "kf_R", "kf_t", "covis")
+# the port's map-store arrays the drawers read, by the counter that bounds
+# their rows in use
+_KF_ARRAYS = ("kf_valid", "kf_R", "kf_t")
+_MP_ARRAYS = ("mp_pos", "mp_valid")
 
 
 class Viewer:
@@ -58,7 +63,11 @@ class Viewer:
             return m
         with m.lock:
             t0 = time.perf_counter()
-            snap = SimpleNamespace(n_kf=m.n_kf, **{k: getattr(m, k).copy() for k in _MAP_ARRAYS})
+            nk, nm = m.next_kf, m.next_mp
+            snap = SimpleNamespace(
+                n_kf=m.n_kf, covis=m.covis[:nk, :nk].copy(),
+                **{k: getattr(m, k)[:nk].copy() for k in _KF_ARRAYS},
+                **{k: getattr(m, k)[:nm].copy() for k in _MP_ARRAYS})
             self.lock_holds.append(time.perf_counter() - t0)
         return snap
 

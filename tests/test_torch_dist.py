@@ -182,7 +182,13 @@ def test_gba_service_lockstep_and_stop(ranks):
     assert sorted(f for f in os.listdir(work) if f.startswith("chunk_1")) == ["chunk_1_0.json", "chunk_1_1.json"]
 
 
-def test_graft_entry_twins():
+@pytest.fixture(scope="module")
+def graft_ranks():
+    """The summaries of one three-rank gloo dry run (one spawn)."""
+    return graft_entry.dryrun_multichip(3, "cpu")
+
+
+def test_graft_entry_twins(graft_ranks):
     """The twins of __graft_entry__: entry() builds a KITTI-size stereo
     frame; dryrun_multichip(3) runs three gloo ranks (one spawn), each with
     the sharded BA step and the extraction of its own image (keypoint count
@@ -192,11 +198,19 @@ def test_graft_entry_twins():
     assert tuple(images.shape) == (2, 376, 1241)
     frame = fn(images)
     assert frame.kp.xy.shape == (2000, 2) and int(frame.kp.valid.sum()) > 500
-    ranks = graft_entry.dryrun_multichip(3, "cpu")
+    ranks = graft_ranks
     assert [r["rank"] for r in ranks] == [0, 1, 2]
     assert all(r["backend"] == "gloo" and r["ba_points"] == 66 for r in ranks)
     assert len({r["keypoints_all_ranks"] for r in ranks}) == 1 and ranks[0]["keypoints_all_ranks"] > 0
     assert ranks[0]["gba"] == "written" and ranks[1]["gba_served"] == ranks[2]["gba_served"] == 1
+
+
+def test_graft_ranks_leave_nothing_holding_the_group(graft_ranks):
+    """After `finish_process` no rank's garbage collector tracks a GbaClient,
+    a GbaServer or anything that refers to a ProcessGroup, garbage included:
+    the client and the servers drop the group themselves (no reference
+    cycle keeps it for the interpreter's exit to destroy)."""
+    assert [r["group_holders"] for r in graft_ranks] == [[], [], []]
 
 
 @pytest.fixture

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -179,6 +180,37 @@ def test_async_viewer_copies_the_map_under_its_lock():
         sys_.shutdown()
     viewer.update()  # shut down: the map is quiescent and drawn as it stands
     assert len(viewer.lock_holds) == 7
+
+
+def test_async_map_view_holds_only_the_rows_in_use():
+    """The async copy holds the keyframe rows up to next_kf, the map-point
+    rows up to next_mp and covisibility's [next_kf, next_kf] corner of a
+    store whose capacity is larger; MapDrawer (with and without the graph)
+    and the frame drawer give the same pixels from it as from the store."""
+    m = convert.map_store_from_reference(_reference_map())
+    m.kf_valid[2] = False  # a culled keyframe inside the rows in use
+    nk, nm = m.next_kf, m.next_mp
+    assert m.kf_capacity > nk and m.mp_capacity > nm
+    rng = np.random.default_rng(5)
+    img, kp, valid, bind = _frame_inputs(rng)
+    pose = (np.eye(3, dtype=np.float32), np.array([0.5, 0.0, 1.0], np.float32))
+    tracker = SimpleNamespace(last_frame_data={"xy": kp, "kp_valid": valid}, _bind_cur=bind,
+                              state=SimpleNamespace(name="OK"), last_pose=pose)
+    sys_ = SimpleNamespace(cfg=synthetic_config(width=64, height=48), map=m, async_mode=True,
+                           tracker=tracker)
+    viewer = Viewer(sys_, map_size=240)
+    view = viewer._map_view()
+    assert len(viewer.lock_holds) == 1 and view.n_kf == m.n_kf
+    assert view.covis.shape == (nk, nk) and np.array_equal(view.covis, m.covis[:nk, :nk])
+    for name, n in (("kf_valid", nk), ("kf_R", nk), ("kf_t", nk), ("mp_pos", nm), ("mp_valid", nm)):
+        got = getattr(view, name)
+        assert len(got) == n and np.array_equal(got, getattr(m, name)[:n]), name
+    for graph in (True, False):
+        drawer = MapDrawer(240, 200)
+        assert np.array_equal(drawer.render(view, cur_pose=pose, draw_graph=graph),
+                              drawer.render(m, cur_pose=pose, draw_graph=graph))
+    fd = FrameDrawer(sys_.cfg)
+    assert np.array_equal(fd.draw_from_system(sys_, img, view), fd.draw_from_system(sys_, img))
 
 
 def test_run_slam_viz_writes_pngs(tmp_path):
