@@ -4,7 +4,8 @@
 
 Phases (any failure exits nonzero before the result lines are printed):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the hand-written kernels from csrc/ with nvcc, print build time;
+  2. build the hand-written kernels from csrc/ with nvcc (one nvcc a
+     source, started together), print build time;
   3. hold both Hamming launchers (hamming_matrix, hamming_best2) against
      their plain PyTorch versions on the card, exactly, at the tracking
      lane's shapes, the ragged shapes and M == 1, with edge-case masks (an
@@ -126,12 +127,24 @@ Phases (any failure exits nonzero before the result lines are printed):
      the motion-only track step, 30 steps back to back): frames/s, ms and
      launches a step, hamming_best2's launches; the fused launcher held and
      timed at the step's own two matcher inputs; one step on the card
-     against the CPU.
+     against the CPU;
+ 27. the vocabulary builder (csrc/vocab.cu): the first 8 worlds of the L6
+     recipe through scripts/torch_train_vocab_l6.py's harvest (80 frames
+     at 560x420, extraction on the card; world 0's frames against the CPU
+     extraction), k=10 L=6 trained on that corpus on the card, counting
+     the launches of vocab_assign, vocab_majority and vocab_seed_draw, and
+     through the CPU path (identical trees, both times, RNG passes per
+     level); each kernel held exactly against its plain version and timed
+     at levels 0, 2 and 5 of that run, vocab_assign at level 0 against
+     hamming_best2 under an all-open mask; 4,000,000 random descriptors
+     trained twice on the card (identical trees; seconds, launches, RNG
+     passes, peak memory), each kernel held exactly against its plain
+     version at levels 0 and 5 of the second run.
 
 The run's order differs from the numbering: phase 22 runs in processes of
 its own while the main process holds the CUDA-vs-CPU checks of phases 4,
-7, 10 and 14 and the CPU halves of phases 23, 24 and 26 (which report no
-times), after phase 21 and the card checks of phases 23 to 26; phase 24's
+7, 10 and 14 and the CPU halves of phases 23, 24, 26 and 27 (which report
+no card times), after phase 21 and the card checks of phases 23 to 27; phase 24's
 viewer runs on the drives of phases 8 and 17; phase 18 runs last.
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -139,6 +152,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -315,6 +329,21 @@ RECORD_KF, RECORD_PTS, RECORD_OBS = 1442, 487556, 570794  # SCALE_1500KF.json
 # identical, tests/test_torch_frame.py; hazard 3 flips descriptor bits)
 FRONTEND_POSE_TOL = 1e-4
 FRONTEND_COUNT_RATE = 0.03
+# phase 27, the vocabulary builder: the first worlds of the L6 recipe
+# (scripts/torch_train_vocab_l6.py: 10 frames a world at 560x420, 1,600
+# features), trained at k=10, L=6 on the card and through the CPU path;
+# then random descriptors at the size of the reference's L6 corpus, twice.
+# World 0's frames, card against CPU extraction: identical keypoint slots
+# and at least VOCAB_DESC_RATE of the descriptors identical (hazards 1-3 of
+# ROADMAP.md queue 3)
+VOCAB_WORLDS = 8
+VOCAB_FULL, VOCAB_FULL_SEED = 4_000_000, 27
+VOCAB_FULL_HELD = (0, 5)  # levels of the full-size run whose kernels are held against their plain versions
+VOCAB_DESC_RATE = 0.997
+VOCAB_KERNELS = ("vocab_assign", "vocab_majority", "vocab_seed_draw")
+VOCAB_REPLACES = {"vocab_assign": "orb_slam2_2021_tpu/ops/hamming_pallas.py:37",
+                  "vocab_majority": "orb_slam2_2021_tpu/place/vocab.py:51",
+                  "vocab_seed_draw": "orb_slam2_2021_tpu/place/vocab.py:58"}
 
 
 T_START = time.perf_counter()
@@ -2874,6 +2903,249 @@ def check_frontend_microloop_cpu(card):
                              f"counts {counts}")
 
 
+def _vocab_kernels():
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    return vk
+
+
+def _vocab_twin():
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_train_vocab_l6 as l6
+
+    return l6
+
+
+def _vocab_counts():
+    vk = _vocab_kernels()
+    return {name: kern.launches for name, kern in zip(VOCAB_KERNELS, vk.KERNELS)}
+
+
+def _zero_vocab_counts():
+    for kern in _vocab_kernels().KERNELS:
+        kern.reset_counts()
+
+
+def vocab_bound(name, args):
+    """The least time of one call on these inputs: each input read once,
+    each output written once, over the memory rate; the assignment's
+    2 * 256 bit operations per row and centre as int8 operations (as the
+    Hamming bounds count them), the majority's 256 per row."""
+    if name == "vocab_assign":
+        rows, _, centers = args
+        n, g, k = rows.shape[0], centers.shape[0], centers.shape[1]
+        return _bound(n * (32 + 8 + 8 + 4) + g * k * 32, n * k * 512)
+    if name == "vocab_majority":
+        rows, _, offsets, k = args[:4]
+        n, g = rows.shape[0], offsets.shape[0] - 1
+        return _bound(n * (32 + 8) + (g + 1) * 8 + g * k * (32 + 4), n * 256)
+    d2, offsets, _ = args
+    g = offsets.shape[0] - 1
+    return _bound(d2.shape[0] * 4 + (g + 1) * 8 + g * 8 + g * (8 + 4), 0)
+
+
+@contextlib.contextmanager
+def _capture_vocab(stats, captured):
+    """While open, each vocabulary wrapper's first inputs at each level of a
+    training (`stats["level"]`) land in `captured` by (name, level); an
+    assignment to one centre (a seeding step) is passed over for the first
+    iteration's."""
+    vk = _vocab_kernels()
+    undo = {name: getattr(vk, name) for name in VOCAB_KERNELS}
+
+    def capture(name):
+        def call(*args):
+            if name != "vocab_assign" or args[2].shape[1] > 1:
+                captured.setdefault((name, stats.get("level")), args)
+            return undo[name](*args)
+        return call
+
+    for name in VOCAB_KERNELS:
+        setattr(vk, name, capture(name))
+    try:
+        yield
+    finally:
+        for name, fn in undo.items():
+            setattr(vk, name, fn)
+
+
+def _hold_vocab_levels(captured, levels, label, max_err, times):
+    """Each kernel against its plain version at each of `levels` of the
+    captured run; its error into max_err, its row into times."""
+    for lvl in levels:
+        for name in VOCAB_KERNELS:
+            err, row = _hold_vocab(name, captured[(name, lvl)], f"level {lvl} of {label}")
+            max_err[name] = max(max_err[name], err)
+            times[name].append(row)
+
+
+def _level_rows(levels):
+    return [(r["nodes"], r["large"], r["passes"], r["resumes"], r["zero_sum_picks"], r["empty_picks"],
+             round(r["seconds"], 3)) for r in levels]
+
+
+def _hold_vocab(name, args, label):
+    """One kernel against its plain version on the captured inputs, exactly,
+    and against itself on a second run; its device time beside the plain
+    version's and its bound. Returns (max abs error, timing row)."""
+    vk = _vocab_kernels()
+    kernel, plain = getattr(vk, name), getattr(vk, name + "_plain")
+    plain_args = args[:4] if name == "vocab_majority" else args  # the majority's plan is the kernel's
+    got, again, ref = kernel(*args), kernel(*args), plain(*plain_args)
+    torch.cuda.synchronize()
+    err = 0
+    for x, y, z in zip(got, ref, again):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{name} disagrees with its plain version at {label}")
+        if not torch.equal(x, z):
+            raise AssertionError(f"{name} differs between two runs at {label}")
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    ms = min(device_ms(lambda: kernel(*args), iters=20), device_ms(lambda: kernel(*args), iters=20))
+    plain_ms = time_ms(lambda: plain(*plain_args), iters=2, warm=1)
+    bound, by = vocab_bound(name, args)
+    if name == "vocab_assign":  # rows, nodes, centres a node
+        shape = [args[0].shape[0], args[2].shape[0], args[2].shape[1]]
+    elif name == "vocab_majority":
+        shape = [args[0].shape[0], args[2].shape[0] - 1, args[3]]
+    else:
+        shape = [args[0].shape[0], args[1].shape[0] - 1]
+    log(f"phase 27 {name} at {label} (rows, nodes[, k] {shape}): == plain (tolerance 0), repeatable; "
+        f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+    return err, {"at": label, "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None}
+
+
+def check_vocab_card(dev):
+    """Phase 27 on the card. (a) The first VOCAB_WORLDS worlds of the L6
+    recipe through the twin's harvest; world 0's frames extracted again on
+    the card, slot by slot, for the CPU half. (b) k=10, L=6 over that corpus
+    on the card, the vocabulary kernels' launches counted, each kernel's
+    first inputs at every level captured. (c) Each kernel held against its
+    plain version at levels 0, 2 and 5 of (b) (the deepest level with all
+    three where level 5 has no node of more than k rows), and timed;
+    vocab_assign at level 0 against hamming_best2 under an all-open mask.
+    (d) VOCAB_FULL random descriptors trained twice on the card: identical
+    trees, seconds, launches, passes, peak memory; each kernel held against
+    its plain version at the VOCAB_FULL_HELD levels of the second run.
+    Returns what the CPU half and the kernels line need."""
+    from orb_slam2_2021_tpu_torch.frontend.features import extract_orb_batched
+    from orb_slam2_2021_tpu_torch.ops import hamming as H
+
+    vk, l6 = _vocab_kernels(), _vocab_twin()
+    cfg = l6.config()
+    t0 = time.perf_counter()
+    corpus, worlds = l6.harvest(1 << 62, dev, max_worlds=VOCAB_WORLDS,
+                                workers=max(1, min(VOCAB_WORLDS, os.cpu_count() or 1)))
+    harvest_s = time.perf_counter() - t0
+    images = l6.world_images(cfg, 0)
+    kp, _ = extract_orb_batched(torch.from_numpy(np.stack(images)).to(dev), cfg.orb)
+    kp = [x.cpu() for x in (kp.xy, kp.octave, kp.valid, kp.desc)]
+    again = [kp[3][b][kp[2][b]].numpy().view(np.uint32) for b in range(len(images))]
+    if not all(np.array_equal(a, b) for a, b in zip(again, worlds[0])):
+        raise AssertionError("world 0 extracted again on the card differs from its harvest")
+    log(f"phase 27 (a) harvest of {len(worlds)} worlds of the L6 recipe ({cfg.width}x{cfg.height}, "
+        f"{cfg.orb.n_features} features, {sum(len(w) for w in worlds)} frames): {len(corpus)} "
+        f"descriptors in {harvest_s:.1f} s (rendering in worker processes, extraction on the card)")
+
+    captured, stats = {}, {}
+    _zero_vocab_counts()
+    with _capture_vocab(stats, captured):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        voc = l6.train(corpus, dev, stats)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    launches = _vocab_counts()
+    levels = stats["levels"]
+    log(f"phase 27 (b) k=10 L=6 over {len(corpus)} descriptors on the card: {card_s:.2f} s; launches "
+        f"{launches}; per level (nodes, nodes of more than k rows, RNG passes, resumes, zero-sum "
+        f"picks, empty-cluster picks, s) {_level_rows(levels)}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the vocabulary builder did not launch every kernel: {launches}")
+
+    full_levels = [lvl for lvl in range(len(levels))
+                   if all((name, lvl) in captured for name in VOCAB_KERNELS)]
+    held = sorted({0, 2, max(lvl for lvl in full_levels if lvl <= 5)} & set(full_levels))
+    max_err, times = dict.fromkeys(VOCAB_KERNELS, 0), {name: [] for name in VOCAB_KERNELS}
+    _hold_vocab_levels(captured, held, "(b)", max_err, times)
+    rows, group, centers = captured[("vocab_assign", 0)]
+    idx, dist = vk.vocab_assign(rows, group, centers)
+    mask = torch.ones((rows.shape[0], centers.shape[1]), dtype=torch.bool, device=dev)
+    best_idx, best, _, _ = H.hamming_best2(rows, centers[0], mask)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, best_idx) and torch.equal(dist, best.int())):
+        raise AssertionError("vocab_assign at level 0 disagrees with hamming_best2 under an open mask")
+    log(f"phase 27 (c) levels {held} held; vocab_assign at level 0 ({rows.shape[0]} x {centers.shape[1]}) "
+        f"== hamming_best2 under an all-open mask (indices and distances)")
+    del captured, rows, group, centers, idx, dist, mask, best_idx, best
+
+    words = np.random.default_rng(VOCAB_FULL_SEED).integers(0, 2 ** 32, (VOCAB_FULL, 8), dtype=np.uint32)
+    runs, captured = [], {}
+    for i in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_vocab_counts()
+        st = {}
+        # the second run keeps its kernels' inputs; the first gives the peak memory without them
+        with _capture_vocab(st, captured) if i else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree = l6.train(words, dev, st)
+            torch.cuda.synchronize()
+        runs.append({"s": time.perf_counter() - t0, "launches": _vocab_counts(),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "passes": [r["passes"] for r in st["levels"]], "tree": tree,
+                     "level_s": [round(r["seconds"], 3) for r in st["levels"]],
+                     "picks": [(r["zero_sum_picks"], r["empty_picks"]) for r in st["levels"]]})
+        log(f"phase 27 (d) k=10 L=6 over {VOCAB_FULL} random descriptors (default_rng"
+            f"({VOCAB_FULL_SEED})) on the card{' (inputs kept)' if i else ''}: {runs[-1]['s']:.2f} s; "
+            f"launches {runs[-1]['launches']}; peak device memory {runs[-1]['peak_bytes'] / 1e9:.2f} GB; "
+            f"per level (nodes, large, passes, resumes, zero-sum, empty, s) {_level_rows(st['levels'])}")
+    a, b = runs[0].pop("tree"), runs[1].pop("tree")
+    if not (np.array_equal(a.node_desc, b.node_desc) and np.array_equal(a.word_idf, b.word_idf)):
+        raise AssertionError("two full-size trainings on the card gave different trees")
+    log("phase 27 (d) the two full-size trees are identical")
+    _hold_vocab_levels(captured, VOCAB_FULL_HELD, "(d)", max_err, times)
+    del captured
+    return {"corpus": corpus, "images": images, "kp": kp, "voc": voc, "levels": levels,
+            "card_s": card_s, "launches": launches, "max_err": max_err, "times": times,
+            "full": runs}
+
+
+def check_vocab_cpu(card):
+    """Phase 27's CPU half: world 0's frames through the CPU extraction
+    (identical keypoint slots, at least VOCAB_DESC_RATE of descriptors
+    identical), and (b)'s training through the CPU path: the card's tree,
+    bit for bit, with the same RNG passes per level."""
+    from orb_slam2_2021_tpu_torch.frontend.features import extract_orb_batched
+
+    l6 = _vocab_twin()
+    cfg = l6.config()
+    kp, _ = extract_orb_batched(torch.from_numpy(np.stack(card["images"])), cfg.orb)
+    xy, octave, valid, desc = card["kp"]
+    slots = torch.equal(valid, kp.valid) and torch.equal(octave, kp.octave) and torch.equal(xy, kp.xy)
+    same = (desc == kp.desc).all(dim=-1)[valid]
+    rate = float(same.float().mean()) if same.numel() else 1.0
+    log(f"phase 27 (a) world 0's {len(card['images'])} frames, card vs CPU extraction: keypoint slots "
+        f"identical {slots}, descriptors identical {rate:.4%} of {same.numel()} (bound {VOCAB_DESC_RATE:.1%})")
+    if not slots or rate < VOCAB_DESC_RATE:
+        raise AssertionError(f"world 0's extraction on the card parts from the CPU's: slots {slots}, "
+                             f"descriptors {rate}")
+    stats = {}
+    t0 = time.perf_counter()
+    voc = l6.train(card["corpus"], "cpu", stats)
+    cpu_s = time.perf_counter() - t0
+    same_tree = (np.array_equal(voc.node_desc, card["voc"].node_desc)
+                 and np.array_equal(voc.word_idf, card["voc"].word_idf))
+    passes = ([r["passes"] for r in card["levels"]], [r["passes"] for r in stats["levels"]])
+    log(f"phase 27 (b) the CPU path over the same {len(card['corpus'])} descriptors: {cpu_s:.2f} s "
+        f"(card {card['card_s']:.2f} s); trees identical {same_tree}; RNG passes per level card "
+        f"{passes[0]}, CPU {passes[1]}")
+    if not same_tree or passes[0] != passes[1]:
+        raise AssertionError("the card's vocabulary differs from the CPU path's")
+
+
 def _best2_by_thread():
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
 
@@ -2903,12 +3175,14 @@ def run(work):
     tum_frames, tum_gt = render_tum()
     close_frames, close_gt = render_close()
 
+    from orb_slam2_2021_tpu_torch.ops.cuda_build import build_all
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
+    from orb_slam2_2021_tpu_torch.ops.vocab_kernels import KERNELS as VOCAB_KERNEL_OBJECTS
 
     t0 = time.perf_counter()
-    HAMMING_KERNEL.build()
-    HAMMING_BEST2_KERNEL.build()  # the same library: one nvcc
-    log(f"built {HAMMING_KERNEL.source} in {time.perf_counter() - t0:.2f} s")
+    build_all([HAMMING_KERNEL, HAMMING_BEST2_KERNEL, *VOCAB_KERNEL_OBJECTS])
+    log(f"built {HAMMING_KERNEL.source} and {VOCAB_KERNEL_OBJECTS[0].source} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     max_err, times = check_hamming(dev)
     lane = drive_kitti(dev)
@@ -2961,6 +3235,9 @@ def run(work):
     max_err = max(max_err, frontend["max_err"])
     times.update(frontend["times"])
     log(f"phase 26 on the card: {time.perf_counter() - t26:.1f} s")
+    t27 = time.perf_counter()
+    vocab = check_vocab_card(dev)
+    log(f"phase 27 on the card: {time.perf_counter() - t27:.1f} s")
     # phase 22's two ranks run in processes of their own while this one
     # holds the CUDA drives of phases 4, 7, 10 and 14 against the CPU path,
     # which report no times, on half of the CPU threads
@@ -2982,6 +3259,9 @@ def run(work):
         t26 = time.perf_counter()
         check_frontend_microloop_cpu(frontend)
         log(f"phase 26, the CPU half: {time.perf_counter() - t26:.1f} s")
+        t27 = time.perf_counter()
+        check_vocab_cpu(vocab)
+        log(f"phase 27, the CPU half: {time.perf_counter() - t27:.1f} s")
         live = finish_dist_live(started, loop["ms"])
     finally:
         stop_dist_live(started)
@@ -3029,6 +3309,15 @@ def run(work):
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shape": head["shape"],
                         "shapes": [{"at": where, **row[name]} for where, row in times.items()]})
+    for name in VOCAB_KERNELS:
+        head = vocab["times"][name][0]  # level 0 of (b): the whole corpus in one node
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "orb_slam2_2021_tpu_torch/csrc/vocab.cu",
+                        "replaces": VOCAB_REPLACES[name], "launches": vocab["launches"][name],
+                        "launches_full_size": [run["launches"][name] for run in vocab["full"]],
+                        "max_abs_err": vocab["max_err"][name],
+                        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                        "shape": head["shape"], "shapes": vocab["times"][name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

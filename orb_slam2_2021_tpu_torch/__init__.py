@@ -8,9 +8,10 @@ copies here; only the packaged vocabulary files are read from the reference
 package's data folder, by path.
 
 The one Pallas kernel of the reference (the packed-descriptor Hamming
-matrix) is a hand-written CUDA kernel here (`csrc/hamming.cu`), built with
-nvcc at first use; everything else is plain PyTorch. The entry points run on
-the card unless the caller passes device="cpu".
+matrix) is a hand-written CUDA kernel here (`csrc/hamming.cu`), and the
+vocabulary builder's k-medians runs on three more (`csrc/vocab.cu`), each
+source built with nvcc at first use; everything else is plain PyTorch. The
+entry points run on the card unless the caller passes device="cpu".
 """
 
 import torch

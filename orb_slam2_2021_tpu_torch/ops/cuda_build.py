@@ -88,14 +88,39 @@ class CudaKernel:
         return self._fn
 
 
-def _compile(src: str, lib_path: str):
+def _start_compile(src: str, lib_path: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {os.path.basename(src)} (exit {res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
+    proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, src, tmp, lib_path
+
+
+def _finish_compile(proc, src: str, tmp: str, lib_path: str):
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {os.path.basename(src)} (exit {proc.returncode}):\n"
+                           f"{out}\n{err}")
     os.replace(tmp, lib_path)
+
+
+def _compile(src: str, lib_path: str):
+    _finish_compile(*_start_compile(src, lib_path))
+
+
+def build_all(kernels: Sequence["CudaKernel"]):
+    """Build the libraries `kernels` need, one nvcc a source, all started
+    together, then load each launcher."""
+    with _BUILD_LOCK:
+        jobs = {}
+        for kern in kernels:
+            lib_path = kern.library_path()
+            if lib_path not in jobs and not os.path.exists(lib_path):
+                jobs[lib_path] = _start_compile(os.path.join(CSRC_DIR, kern.source), lib_path)
+        for job in jobs.values():
+            _finish_compile(*job)
+    for kern in kernels:
+        kern.build()
 
 
 def _load(lib_path: str):

@@ -485,3 +485,88 @@ def test_sor_on_cuda_matches_cpu(cuda_device):
     assert torch.equal(mean_knn_distances(p.to(cuda_device), 50, block_rows=7), gpu)
     assert (statistical_outlier_filter(pts, device=cuda_device)
             == statistical_outlier_filter(pts, device="cpu")).mean() >= 0.999
+
+
+def _vocab_rows(rng, sizes, dev):
+    """Random descriptors grouped by node (`sizes` rows each) with a few
+    repeated rows: (rows [R, 8] int32, group [R], offsets [G + 1])."""
+    words = rng.integers(0, 2 ** 32, (int(sum(sizes)), 8), dtype=np.uint32)
+    words[: len(words) // 10] = words[0]
+    rows = torch.from_numpy(words.view(np.int32)).to(dev)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)).to(dev)
+    group = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
+                                    offsets[1:] - offsets[:-1])
+    return rows, group, offsets
+
+
+VOCAB_SIZES = [0, 1, 10, 11, 400, 4096, 4097, 20000]  # empty, small, one and several majority chunks
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_vocab_assign_kernel_matches_plain(cuda_device, k):
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    rng = np.random.default_rng(30 + k)
+    rows, group, _ = _vocab_rows(rng, VOCAB_SIZES, cuda_device)
+    centers = rows[torch.from_numpy(rng.integers(0, rows.shape[0], (len(VOCAB_SIZES), k))).to(cuda_device)]
+    centers[:, -1] = centers[:, 0]  # a tied duplicate: the first occurrence wins
+    launches = vk.VOCAB_ASSIGN_KERNEL.launches
+    idx, dist = vk.vocab_assign(rows, group, centers.contiguous())
+    torch.cuda.synchronize()
+    pidx, pdist = vk.vocab_assign_plain(rows, group, centers.contiguous())
+    assert torch.equal(idx, pidx) and torch.equal(dist, pdist), "kernel vs plain: tolerance 0"
+    assert vk.VOCAB_ASSIGN_KERNEL.launches == launches + 1
+
+
+def test_vocab_majority_kernel_matches_plain(cuda_device):
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    rng = np.random.default_rng(41)
+    rows, _, offsets = _vocab_rows(rng, VOCAB_SIZES, cuda_device)
+    for k in (1, 10, 16):
+        assign = torch.from_numpy(rng.integers(0, k, rows.shape[0])).to(cuda_device)
+        launches = vk.VOCAB_MAJORITY_KERNEL.launches
+        centers, sizes = vk.vocab_majority(rows, assign, offsets, k)
+        torch.cuda.synchronize()
+        pc, ps = vk.vocab_majority_plain(rows, assign, offsets, k)
+        assert torch.equal(centers, pc) and torch.equal(sizes, ps), f"k={k}: tolerance 0"
+        assert vk.VOCAB_MAJORITY_KERNEL.launches == launches + 2, "the chunk and the pack kernel"
+
+
+def test_vocab_seed_draw_kernel_matches_plain(cuda_device):
+    """numpy's rng.choice pick, bit for bit, with zero-sum nodes and a node
+    of 2 M rows (the level-0 chain)."""
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    rng = np.random.default_rng(52)
+    sizes = [1, 11, 400, 4097, 2_000_000, 30]
+    d2 = rng.integers(0, 257, sum(sizes)).astype(np.int32)
+    d2[1:12] = 0  # the second node sums to 0
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)).to(cuda_device)
+    u = torch.from_numpy(rng.random(len(sizes))).to(cuda_device)
+    d2 = torch.from_numpy(d2).to(cuda_device)
+    pick, zero = vk.vocab_seed_draw(d2, offsets, u)
+    torch.cuda.synchronize()
+    ppick, pzero = vk.vocab_seed_draw_plain(d2, offsets, u)
+    assert torch.equal(zero, pzero) and zero.tolist() == [False, True, False, False, False, False]
+    assert torch.equal(pick, ppick), "kernel vs plain: tolerance 0"
+
+
+def test_vocab_tree_on_cuda_matches_cpu(cuda_device):
+    """k=10, L=4 on the card against the CPU path (which
+    tests/test_torch_vocab_card.py holds against the reference), on random
+    rows beside repeated ones (zero-sum seeds and empty clusters)."""
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+    from orb_slam2_2021_tpu_torch.place.vocab import train_vocabulary
+
+    rng = np.random.default_rng(60)
+    words = rng.integers(0, 2 ** 32, (20000, 8), dtype=np.uint32)
+    words[rng.integers(0, 20000, 3000)] = words[:6][rng.integers(0, 6, 3000)]
+    for kern in vk.KERNELS:
+        kern.reset_counts()
+    card_stats, cpu_stats = {}, {}
+    card = train_vocabulary(words, k=10, L=4, seed=3, device=cuda_device, stats=card_stats)
+    assert all(kern.launches > 0 for kern in vk.KERNELS)
+    cpu = train_vocabulary(words, k=10, L=4, seed=3, device="cpu", stats=cpu_stats)
+    assert np.array_equal(card.node_desc, cpu.node_desc) and np.array_equal(card.word_idf, cpu.word_idf)
+    assert [r["passes"] for r in card_stats["levels"]] == [r["passes"] for r in cpu_stats["levels"]]

@@ -1,10 +1,11 @@
 """The port's vocabulary training and writing (`place/vocab.py`:
-`train_vocabulary`, `_kmeans_binary`, `BinaryVocabulary.transform_np` /
+`train_vocabulary` on the CPU path, `BinaryVocabulary.transform_np` /
 `.save`, `save_orbvoc_text`) held against the JAX package on the CPU.
 
-Training is host numpy on one RNG stream on both sides, so trees, idf and
-written files must be identical, bit for bit and byte for byte, at k=4 L=3
-as in tests/test_orbvoc_format.py.
+Both sides draw from one numpy RNG stream in the same order, so trees, idf
+and written files must be identical, bit for bit and byte for byte, at k=4
+L=3 as in tests/test_orbvoc_format.py. The level-batched trainer's kernels
+and its resume path are held in tests/test_torch_vocab_card.py.
 """
 
 import os
@@ -15,6 +16,7 @@ import torch
 
 from orb_slam2_2021_tpu.place import vocab as jvocab
 from orb_slam2_2021_tpu_torch import convert
+from orb_slam2_2021_tpu_torch.ops.vocab_kernels import vocab_majority
 from orb_slam2_2021_tpu_torch.place import vocab as tvocab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,7 +41,7 @@ def trained():
 def test_train_vocabulary_equals_reference(k, L, n, seed, dup):
     corpus = _descs(10 + seed, n, dup)
     ref = jvocab.train_vocabulary(corpus, k=k, L=L, seed=seed)
-    port = tvocab.train_vocabulary(corpus, k=k, L=L, seed=seed)
+    port = tvocab.train_vocabulary(corpus, k=k, L=L, seed=seed, device="cpu")
     assert (port.k, port.L) == (k, L) and port.node_desc.dtype == np.uint32
     assert np.array_equal(port.node_desc, ref.node_desc)
     assert port.word_idf.dtype == np.float32 and np.array_equal(port.word_idf, ref.word_idf)
@@ -51,10 +53,17 @@ def test_training_helpers_equal_reference():
     assert np.array_equal(tvocab._hamming_np(a, b), jvocab._hamming_np(a, b))
     assert np.array_equal(tvocab._hamming_np(a, b, chunk=64), jvocab._hamming_np(a, b, chunk=64))
     assert np.array_equal(tvocab._hamming_np(a, b, chunk=64), tvocab._hamming_np(a, b))
+    # the bitwise majority (the reference's _majority_centroid) is the plain
+    # version of the trainer's majority kernel, one cluster of n rows
     for n in (1, 2, 5, 300):
-        assert np.array_equal(tvocab._majority_centroid(a[:n]), jvocab._majority_centroid(a[:n]))
+        centers, sizes = vocab_majority(convert.desc_from_numpy(a[:n], "cpu"), torch.zeros(n, dtype=torch.int64),
+                                        torch.tensor([0, n]), 1)
+        assert sizes.item() == n
+        assert np.array_equal(convert.desc_to_numpy(centers[0, 0]), jvocab._majority_centroid(a[:n]))
+    # one node's k-medians (the reference's _kmeans_binary) is the level-0
+    # tree of an L=1 training from the same seed
     for n, k in ((300, 6), (4, 6), (0, 3)):
-        got = tvocab._kmeans_binary(a[:n], k, np.random.default_rng(7))
+        got = tvocab.train_vocabulary(a[:n], k=k, L=1, seed=7, device="cpu").node_desc[1:]
         want = jvocab._kmeans_binary(a[:n], k, np.random.default_rng(7))
         assert got.shape == (k, 8) and np.array_equal(got, want)
 
@@ -74,7 +83,7 @@ def test_save_orbvoc_text_byte_identical(trained, tmp_path):
 
 def test_save_load_round_trip(trained, tmp_path):
     corpus, ref = trained
-    port = tvocab.train_vocabulary(corpus, k=4, L=3, seed=0)
+    port = tvocab.train_vocabulary(corpus, k=4, L=3, seed=0, device="cpu")
     path = str(tmp_path / "voc.npz")
     port.save(path)
     for back in (tvocab.BinaryVocabulary.load(path), jvocab.BinaryVocabulary.load(path)):
