@@ -139,7 +139,12 @@ Phases (any failure exits nonzero before the result lines are printed):
      hamming_best2 under an all-open mask; 4,000,000 random descriptors
      trained twice on the card (identical trees; seconds, launches, RNG
      passes, peak memory), each kernel held exactly against its plain
-     version at levels 0 and 5 of the second run.
+     version at levels 0 and 5 of the second run; the seed draw timed
+     beside torch.cumsum of the same float64 p; both redesigned kernels
+     held on adversarial inputs (tie-forcing, binade-crossing, zero-run,
+     power-of-two-sum and zero-sum nodes, nodes just over the chain's
+     2,048 rows, uniforms on the cdf's own values; nodes ending inside a
+     k-word, group or chunk, empty clusters, rows in no cluster).
 
 The run's order differs from the numbering: phase 22 runs in processes of
 its own while the main process holds the CUDA-vs-CPU checks of phases 4,
@@ -2926,6 +2931,108 @@ def _zero_vocab_counts():
         kern.reset_counts()
 
 
+# adversarial inputs of the two redesigned vocabulary kernels, shared with
+# tests/test_torch_vocab_card.py (the host models) and tests/test_torch_cuda.py
+SEED_DRAW_CASES = ("random", "256_then_ones", "ties", "ties_over_chain", "pow2_sums", "zero_runs", "n1",
+                   "zero_sum")
+MAJORITY_SIZES = (0, 1, 31, 33, 128, 129, 300, 512, 513, 4096, 8192, 8193, 20000)  # small, one and several chunks
+
+
+def seed_draw_case(name, rng):
+    """d2 nodes (lists of int32 arrays in 0..256) that stress the seed draw's
+    exact scan: random rows up to 10^5; a first row of 256 then ones (every
+    binade from 2^-9 up); terms 0.45-0.7 of the sum so far (q in the binade
+    just below c's: ties), alone and at the head of nodes just over the
+    chain's 2,048 rows (the tiles' ties, among chain nodes); power-of-two
+    sums (D / s on powers of two); long runs of zeros; single rows; zero
+    sums."""
+    if name == "random":
+        return [rng.integers(0, 257, n).astype(np.int32) for n in (100_000, 9_000, 4_097, 2_049, 300)]
+    if name == "256_then_ones":
+        out = []
+        for n in (2, 100, 5_000, 100_000):
+            d2 = np.ones(n, np.int32)
+            d2[0] = 256
+            out.append(d2)
+        return out
+    if name in ("ties", "ties_over_chain"):
+        out = []
+        for i in range(40 if name == "ties" else 24):
+            d2 = [int(rng.integers(1, 4))]
+            while len(d2) < 24:
+                d2.append(min(256, max(1, round(sum(d2) * rng.uniform(0.45, 0.7)))))
+            tail = int(rng.integers(0, 200)) if name == "ties" or i % 3 == 2 else int(rng.integers(2_025, 4_200))
+            out.append(np.array(d2 + list(rng.integers(0, 257, tail)), np.int32))
+        return out
+    if name == "pow2_sums":
+        out = []
+        for n in (64, 1_024, 8_192):
+            d2 = rng.integers(0, 257, n).astype(np.int32)
+            d2[-1] = 0
+            need, i = (1 << int(np.ceil(np.log2(d2.sum())))) - int(d2.sum()), n - 1
+            while need > 0:
+                add = min(256 - int(d2[i]), need)
+                d2[i] += add
+                need -= add
+                i -= 1
+            out.append(d2)
+        return out
+    if name == "zero_runs":
+        out = []
+        for n in (5_000, 60_000):
+            d2 = rng.integers(0, 257, n).astype(np.int32)
+            d2[: n // 3] = 0
+            d2[n // 2: n // 2 + n // 5] = 0
+            out.append(d2)
+        return out
+    if name == "n1":
+        return [np.array([7], np.int32), np.array([256], np.int32)]
+    if name == "zero_sum":
+        return [np.zeros(n, np.int32) for n in (1, 33, 5_000)]
+    raise ValueError(name)
+
+
+def seed_draw_uniforms(nodes, rng):
+    """Per node, uniforms that land on the cdf's own values and beside them,
+    besides numpy's stream, 0 and the largest below 1: a list of [G]
+    float64 arrays."""
+    g = len(nodes)
+    out = [rng.random(g), np.zeros(g), np.full(g, np.nextafter(1.0, 0.0))]
+    exact = np.zeros(g)
+    for j, d2 in enumerate(nodes):
+        s = d2.astype(np.int64).sum()
+        if s:
+            cdf = np.cumsum(d2.astype(np.float64) / s)
+            exact[j] = (cdf / cdf[-1])[rng.integers(0, len(d2))]
+    return out + [exact, np.nextafter(exact, 0.0), np.nextafter(exact, 2.0)]
+
+
+def majority_case(rng, k, sizes=MAJORITY_SIZES):
+    """(rows [R, 8] uint32, assign [R] int64, offsets [G + 1]): random rows
+    with runs of repeats (even ties), cluster k - 1 empty, and about 1% of
+    the rows in no cluster (-1, k, 99)."""
+    rows = rng.integers(0, 2 ** 32, (int(sum(sizes)), 8), dtype=np.uint32)
+    rows[5:400] = rows[4]
+    assign = rng.integers(0, k, len(rows))
+    if k > 1:
+        assign[assign == k - 1] = 0
+    out = rng.integers(0, len(rows), max(1, len(rows) // 100))
+    assign[out] = rng.choice([-1, k, 99], len(out))
+    return rows, assign, np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+
+def counted_rows(rows, assign, offsets, k):
+    """The plain majority's inputs with the rows in no cluster (outside
+    0..k-1) left out: the kernels count them nowhere, the plain version takes
+    clusters in 0..k-1 only."""
+    keep = (assign >= 0) & (assign < k)
+    node = torch.repeat_interleave(torch.arange(offsets.shape[0] - 1, device=rows.device),
+                                   offsets[1:] - offsets[:-1], output_size=rows.shape[0])
+    off = torch.zeros_like(offsets)
+    off[1:] = torch.cumsum(torch.bincount(node[keep], minlength=offsets.shape[0] - 1), 0)
+    return rows[keep].contiguous(), assign[keep].contiguous(), off
+
+
 def vocab_bound(name, args):
     """The least time of one call on these inputs: each input read once,
     each output written once, over the memory rate; the assignment's
@@ -2939,7 +3046,7 @@ def vocab_bound(name, args):
         rows, _, offsets, k = args[:4]
         n, g = rows.shape[0], offsets.shape[0] - 1
         return _bound(n * (32 + 8) + (g + 1) * 8 + g * k * (32 + 4), n * 256)
-    d2, offsets, _ = args
+    d2, offsets = args[:2]
     g = offsets.shape[0] - 1
     return _bound(d2.shape[0] * 4 + (g + 1) * 8 + g * 8 + g * (8 + 4), 0)
 
@@ -2987,33 +3094,93 @@ def _level_rows(levels):
 def _hold_vocab(name, args, label):
     """One kernel against its plain version on the captured inputs, exactly,
     and against itself on a second run; its device time beside the plain
-    version's and its bound. Returns (max abs error, timing row)."""
+    version's and its bound. The seed draw's yardstick is torch.cumsum of a
+    float64 p of the same length (numpy's order is not a parallel scan's:
+    the port never calls it). Returns (max abs error, timing row)."""
     vk = _vocab_kernels()
     kernel, plain = getattr(vk, name), getattr(vk, name + "_plain")
-    plain_args = args[:4] if name == "vocab_majority" else args  # the majority's plan is the kernel's
-    got, again, ref = kernel(*args), kernel(*args), plain(*plain_args)
-    torch.cuda.synchronize()
-    err = 0
-    for x, y, z in zip(got, ref, again):
-        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
-            raise AssertionError(f"{name} disagrees with its plain version at {label}")
-        if not torch.equal(x, z):
-            raise AssertionError(f"{name} differs between two runs at {label}")
-        if x.numel():
-            err = max(err, int((x.long() - y.long()).abs().max()))
-    ms = min(device_ms(lambda: kernel(*args), iters=20), device_ms(lambda: kernel(*args), iters=20))
+    # the majority's plan and the seed draw's largest node are the kernels'
+    plain_args = {"vocab_majority": args[:4], "vocab_seed_draw": args[:3]}.get(name, args)
+    ref = plain(*plain_args)
+
+    def held(what):
+        got, again = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        err = 0
+        for x, y, z in zip(got, ref, again):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"{what} disagrees with its plain version at {label}")
+            if not torch.equal(x, z):
+                raise AssertionError(f"{what} differs between two runs at {label}")
+            if x.numel():
+                err = max(err, int((x.long() - y.long()).abs().max()))
+        return err
+
+    def timed(fn):
+        return min(device_ms(fn, iters=20), device_ms(fn, iters=20))
+
+    err = held(name)
+    ms = timed(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*plain_args), iters=2, warm=1)
     bound, by = vocab_bound(name, args)
+    library_ms = None
+    if name == "vocab_seed_draw":
+        p = args[0].double() / max(1.0, float(args[0].sum()))
+        library_ms = timed(lambda: torch.cumsum(p, 0))
     if name == "vocab_assign":  # rows, nodes, centres a node
         shape = [args[0].shape[0], args[2].shape[0], args[2].shape[1]]
     elif name == "vocab_majority":
         shape = [args[0].shape[0], args[2].shape[0] - 1, args[3]]
     else:
         shape = [args[0].shape[0], args[1].shape[0] - 1]
+    more = f", torch.cumsum {library_ms:.4f} ms" if library_ms is not None else ""
     log(f"phase 27 {name} at {label} (rows, nodes[, k] {shape}): == plain (tolerance 0), repeatable; "
-        f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+        f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms{more}")
     return err, {"at": label, "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                 "bound_by": by, "library_ms": None}
+                 "bound_by": by, "library_ms": library_ms}
+
+
+def check_vocab_adversarial(dev, level0_seed):
+    """The two redesigned kernels on the host models' adversarial inputs:
+    every seed-draw case (tests/test_torch_vocab_card.py) in one call and
+    (d)'s level-0 distances, with uniforms on and beside the cdf's own
+    values; the majority at k = 1, 10, 16 over nodes that
+    end inside a k-word, a group and a chunk, with empty clusters and rows in
+    no cluster. Each equal to its plain version, twice. Returns how many
+    calls were held."""
+    vk = _vocab_kernels()
+    rng = np.random.default_rng(VOCAB_FULL_SEED)
+    held = 0
+
+    def hold_seed(d2, offsets, us, what):
+        nonlocal held
+        for u in us:
+            u = torch.from_numpy(np.ascontiguousarray(u, np.float64)).to(dev)
+            got, again = vk.vocab_seed_draw(d2, offsets, u), vk.vocab_seed_draw(d2, offsets, u)
+            torch.cuda.synchronize()
+            ref = vk.vocab_seed_draw_plain(d2, offsets, u)
+            if not all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(got, ref, again)):
+                raise AssertionError(f"vocab_seed_draw disagrees with its plain version on {what}")
+            held += 1
+
+    for name in SEED_DRAW_CASES:
+        nodes = seed_draw_case(name, rng)
+        offsets = np.concatenate([[0], np.cumsum([len(x) for x in nodes])]).astype(np.int64)
+        hold_seed(torch.from_numpy(np.concatenate(nodes)).to(dev), torch.from_numpy(offsets).to(dev),
+                  seed_draw_uniforms(nodes, rng), name)
+    d2, offsets = level0_seed[:2]
+    hold_seed(d2, offsets, seed_draw_uniforms([d2.cpu().numpy()], rng), "(d) level 0")
+    for k in (1, 10, 16):
+        rows, assign, offsets = majority_case(rng, k)
+        rows = torch.from_numpy(rows.view(np.int32)).to(dev)
+        assign, offsets = torch.from_numpy(assign).to(dev), torch.from_numpy(offsets).to(dev)
+        ref = vk.vocab_majority_plain(*counted_rows(rows, assign, offsets, k), k)
+        got, again = vk.vocab_majority(rows, assign, offsets, k), vk.vocab_majority(rows, assign, offsets, k)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(got, ref, again)):
+            raise AssertionError(f"vocab_majority disagrees with its plain version at k={k}")
+        held += 1
+    return held
 
 
 def check_vocab_card(dev):
@@ -3028,7 +3195,9 @@ def check_vocab_card(dev):
     (d) VOCAB_FULL random descriptors trained twice on the card: identical
     trees, seconds, launches, passes, peak memory; each kernel held against
     its plain version at the VOCAB_FULL_HELD levels of the second run.
-    Returns what the CPU half and the kernels line need."""
+    (e) The seed draw and the majority on adversarial inputs
+    (check_vocab_adversarial). Returns what the CPU half and the kernels
+    line need."""
     from orb_slam2_2021_tpu_torch.frontend.features import extract_orb_batched
     from orb_slam2_2021_tpu_torch.ops import hamming as H
 
@@ -3107,6 +3276,11 @@ def check_vocab_card(dev):
         raise AssertionError("two full-size trainings on the card gave different trees")
     log("phase 27 (d) the two full-size trees are identical")
     _hold_vocab_levels(captured, VOCAB_FULL_HELD, "(d)", max_err, times)
+    t0 = time.perf_counter()
+    n_held = check_vocab_adversarial(dev, captured[("vocab_seed_draw", 0)])
+    log(f"phase 27 (e) {n_held} calls on the adversarial inputs (seed draw: {', '.join(SEED_DRAW_CASES)}, "
+        f"(d) level 0; majority: k = 1, 10, 16) == plain (tolerance 0), repeatable; "
+        f"{time.perf_counter() - t0:.1f} s")
     del captured
     return {"corpus": corpus, "images": images, "kp": kp, "voc": voc, "levels": levels,
             "card_s": card_s, "launches": launches, "max_err": max_err, "times": times,

@@ -16,8 +16,11 @@ it launches:
   numpy's `rng.choice(n, p=d2 / d2.sum())` makes from the uniform u, and a
   flag where d2 sums to 0.
 
-On a CUDA tensor each launches its kernel or raises; on a CPU tensor it runs
+On a CUDA tensor each launches its kernels or raises; on a CPU tensor it runs
 its plain version (`*_plain`), which the tests hold against the reference.
+The majority counts on 1-bit tensor cores (rows bit-transposed by warp
+shuffles); the seed draw reproduces numpy's float64 cumulative sum by
+composed per-binade integer runs over tiles: csrc/vocab.cu's header says how.
 """
 
 from __future__ import annotations
@@ -30,14 +33,21 @@ import torch
 from .cuda_build import CudaKernel
 from .hamming import _popcount32
 
-MAX_K = 16             # centres per node the kernels take
-MAJORITY_CHUNK = 1024  # rows a block of the majority kernel counts
+# the kernels' compile-time sizes, as csrc/vocab.cu sets them (the plans
+# and scratch sizes below follow them)
+MAX_K = 16             # centres per node the kernels take (kMaxK)
+MAJORITY_SMALL = 512   # nodes up to this many rows: one warp each (kMajSmallRows)
+SEED_CHAIN_MAX = 2048  # nodes up to this many rows: the warp chain (kChainMax)
+SEED_TILE = 4096       # rows of a seed-draw tile (kTile)
+SEED_KERNELS = 4       # kernels a seed draw launches where a node exceeds SEED_CHAIN_MAX
+MAJORITY_CHUNK = 8192  # rows a block of the majority's chunk kernel counts
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 VOCAB_ASSIGN_KERNEL = CudaKernel("vocab.cu", "vocab_assign_launch", [_P, _P, _P, _I, _L, _P, _P, _P])
 VOCAB_MAJORITY_KERNEL = CudaKernel("vocab.cu", "vocab_majority_launch",
-                                   [_P] * 6 + [_I, _I] + [_P] * 5 + [_I, _P])
-VOCAB_SEED_DRAW_KERNEL = CudaKernel("vocab.cu", "vocab_seed_draw_launch", [_P, _P, _P, _I, _P, _P, _P, _P])
+                                   [_P, _P, _P, _I] + [_P] * 4 + [_I, _I] + [_P] * 5 + [_I, _P])
+VOCAB_SEED_DRAW_KERNEL = CudaKernel("vocab.cu", "vocab_seed_draw_launch",
+                                    [_P, _P, _P, _I, _L, _L, _P, _L, _P, _P, _P])
 KERNELS = (VOCAB_ASSIGN_KERNEL, VOCAB_MAJORITY_KERNEL, VOCAB_SEED_DRAW_KERNEL)
 
 _ROW_CHUNK = 1 << 15  # rows a plain version takes at once (bounds its temporaries)
@@ -137,9 +147,10 @@ def vocab_assign(rows, group, centers):
 # ------------------------------------------------------------------ majority
 
 class MajorityPlan(NamedTuple):
-    """How the majority kernel cuts a level's rows: chunks of at most
-    MAJORITY_CHUNK rows of one node (every node at least one), and a slot of
-    the global count table for each node of more than one chunk."""
+    """How the majority's chunk kernel cuts the nodes of more than
+    MAJORITY_SMALL rows (the others take a warp each): chunks of at most
+    MAJORITY_CHUNK rows of one node, and a slot of the global count table for
+    each node of more than one chunk."""
     chunk_row0: torch.Tensor  # [C] int64
     chunk_rows: torch.Tensor  # [C] int32
     chunk_node: torch.Tensor  # [C] int32
@@ -151,7 +162,7 @@ def majority_plan(offsets) -> MajorityPlan:
     """The chunk plan of `offsets` [G + 1] int64 (on the rows' device)."""
     dev = offsets.device
     n = offsets[1:] - offsets[:-1]
-    n_chunks = torch.clamp_min((n + MAJORITY_CHUNK - 1) // MAJORITY_CHUNK, 1)
+    n_chunks = torch.where(n > MAJORITY_SMALL, (n + MAJORITY_CHUNK - 1) // MAJORITY_CHUNK, 0)
     first = torch.cumsum(n_chunks, 0) - n_chunks
     total = int(n_chunks.sum())
     node = torch.repeat_interleave(torch.arange(n.shape[0], device=dev), n_chunks, output_size=total)
@@ -199,7 +210,8 @@ def vocab_majority(rows, assign, offsets, k, plan=None):
     `majority_plan(offsets)` of earlier calls on the same offsets (making
     one reads its size back to the host).
 
-    A CUDA input launches the chunk kernel, and the pack kernel where a node
+    A CUDA input launches the small-node kernel, the chunk kernel where a
+    node has more than MAJORITY_SMALL rows and the pack kernel where a node
     spans more than one chunk (counting each launch), or raises; a CPU input
     runs the plain version."""
     _check_rows(rows)
@@ -212,8 +224,9 @@ def vocab_majority(rows, assign, offsets, k, plan=None):
     dev = _same_device(rows, assign, offsets)
     if dev.type == "cpu":
         return vocab_majority_plain(rows, assign, offsets, k)
+    _aligned(rows, "rows")
     plan = majority_plan(offsets) if plan is None else plan
-    g_count, n_slots = offsets.shape[0] - 1, plan.slot_node.shape[0]
+    g_count, n_chunks, n_slots = offsets.shape[0] - 1, plan.chunk_row0.shape[0], plan.slot_node.shape[0]
     centers = torch.empty((g_count, k, 8), dtype=torch.int32, device=dev)
     sizes = torch.empty((g_count, k), dtype=torch.int32, device=dev)
     slot_counts = torch.zeros((n_slots, k, 256), dtype=torch.int32, device=dev)
@@ -221,10 +234,11 @@ def vocab_majority(rows, assign, offsets, k, plan=None):
     if g_count == 0:
         return centers, sizes
     _launch(VOCAB_MAJORITY_KERNEL, "vocab_majority", rows.data_ptr(), assign.data_ptr(),
-            plan.chunk_row0.data_ptr(), plan.chunk_rows.data_ptr(), plan.chunk_node.data_ptr(),
-            plan.node_slot.data_ptr(), plan.chunk_row0.shape[0], k, centers.data_ptr(),
-            sizes.data_ptr(), slot_counts.data_ptr(), slot_sizes.data_ptr(),
-            plan.slot_node.data_ptr(), n_slots, dev, kernels=1 + (n_slots > 0))
+            offsets.data_ptr(), g_count, plan.chunk_row0.data_ptr(),
+            plan.chunk_rows.data_ptr(), plan.chunk_node.data_ptr(), plan.node_slot.data_ptr(), n_chunks,
+            k, centers.data_ptr(), sizes.data_ptr(), slot_counts.data_ptr(), slot_sizes.data_ptr(),
+            plan.slot_node.data_ptr(), n_slots, dev,
+            kernels=1 + (n_chunks > 0) + (n_slots > 0))
     return centers, sizes
 
 
@@ -260,14 +274,17 @@ def vocab_seed_draw_plain(d2, offsets, u):
     return pick.to(dev), zero.to(dev)
 
 
-def vocab_seed_draw(d2, offsets, u):
+def vocab_seed_draw(d2, offsets, u, max_rows=None):
     """d2 [R] int32 in 0..256 grouped by node (`offsets` [G + 1] int64), u [G]
     float64 in [0, 1) -> (pick [G] int64 within the node, zero [G] bool):
     the k-means++ pick exactly as numpy's rng.choice(n, p=d2 / s) makes it,
-    and where d2 sums to 0 (pick 0 there).
+    and where d2 sums to 0 (pick 0 there). `max_rows`: the largest node's
+    rows, which the caller of several draws on the same offsets knows
+    (taking it from `offsets` reads it back to the host).
 
-    A CUDA input launches the kernel (and counts the launch) or raises; a
-    CPU input runs the plain version."""
+    A CUDA input launches the chain kernel and, where a node has more than
+    SEED_CHAIN_MAX rows, the three kernels of the tiled scan (counting each
+    launch), or raises; a CPU input runs the plain version."""
     _check(d2, "d2", torch.int32, 1)
     _check(offsets, "offsets", torch.int64, 1)
     _check(u, "u", torch.float64, 1)
@@ -276,12 +293,28 @@ def vocab_seed_draw(d2, offsets, u):
     dev = _same_device(d2, offsets, u)
     if dev.type == "cpu":
         return vocab_seed_draw_plain(d2, offsets, u)
-    g_count = u.shape[0]
-    cdf = torch.empty(d2.shape[0], dtype=torch.float64, device=dev)
+    g_count, n = u.shape[0], d2.shape[0]
     pick = torch.empty(g_count, dtype=torch.int64, device=dev)
-    zero = torch.empty(g_count, dtype=torch.int32, device=dev)
+    zero = torch.empty(g_count, dtype=torch.bool, device=dev)
     if g_count == 0:
-        return pick, zero.bool()
+        return pick, zero
+    if max_rows is None:
+        max_rows = int((offsets[1:] - offsets[:-1]).max())
+    tiled = max_rows > SEED_CHAIN_MAX
+    words = (seed_scratch_bytes(g_count, n) + 7) // 8 if tiled else 0
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
     _launch(VOCAB_SEED_DRAW_KERNEL, "vocab_seed_draw", d2.data_ptr(), offsets.data_ptr(),
-            u.data_ptr(), g_count, cdf.data_ptr(), pick.data_ptr(), zero.data_ptr(), dev)
-    return pick, zero.bool()
+            u.data_ptr(), g_count, n, max_rows, scratch.data_ptr(), 8 * scratch.numel(),
+            pick.data_ptr(), zero.data_ptr(), dev, kernels=SEED_KERNELS if tiled else 1)
+    return pick, zero
+
+
+def seed_scratch_bytes(groups, rows):
+    """The scratch of a tiled seed draw (vocab.cu, vocab_seed_draw_launch):
+    per tile of the bound, its sum, c at its end and at its group's end (8
+    bytes each), its segment (64) and its node (4); per node its first tile,
+    per node that may exceed SEED_CHAIN_MAX its place in the walk (4 each);
+    two counts."""
+    large = min(groups, rows // (SEED_CHAIN_MAX + 1))
+    tiles = rows // SEED_TILE + large + 1
+    return tiles * (3 * 8 + 64 + 4) + 4 * (groups + large) + 8

@@ -196,8 +196,9 @@ def _large_pass(X, offsets, d: _Draws, k: int):
     zero_from = torch.from_numpy(d.zero_from).to(dev)
     seed_dev = torch.full((g_count,), k, dtype=torch.int64, device=dev)
     seed_zero = torch.zeros(g_count, dtype=torch.bool, device=dev)
+    max_rows = int(n_host.max())
     for j in range(1, k):
-        pick, zero = vk.vocab_seed_draw(d2, off_l, u[:, j].contiguous())
+        pick, zero = vk.vocab_seed_draw(d2, off_l, u[:, j].contiguous(), max_rows)
         assumed = zero_from <= j
         first = (zero != assumed) & (seed_dev == k)
         seed_dev = torch.where(first, j, seed_dev)

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from chip_smoke import hamming_inputs  # edge-case descriptors and masks
+from chip_smoke import (MAJORITY_SIZES, SEED_DRAW_CASES, counted_rows, majority_case,
+                        seed_draw_case, seed_draw_uniforms)
 from orb_slam2_2021_tpu_torch.config import synthetic_config
 from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticStereoWorld, forward_trajectory
 from orb_slam2_2021_tpu_torch.ops import hamming as tham
@@ -530,7 +532,7 @@ def test_vocab_majority_kernel_matches_plain(cuda_device):
         torch.cuda.synchronize()
         pc, ps = vk.vocab_majority_plain(rows, assign, offsets, k)
         assert torch.equal(centers, pc) and torch.equal(sizes, ps), f"k={k}: tolerance 0"
-        assert vk.VOCAB_MAJORITY_KERNEL.launches == launches + 2, "the chunk and the pack kernel"
+        assert vk.VOCAB_MAJORITY_KERNEL.launches == launches + 3, "the small-node, chunk and pack kernels"
 
 
 def test_vocab_seed_draw_kernel_matches_plain(cuda_device):
@@ -550,6 +552,92 @@ def test_vocab_seed_draw_kernel_matches_plain(cuda_device):
     ppick, pzero = vk.vocab_seed_draw_plain(d2, offsets, u)
     assert torch.equal(zero, pzero) and zero.tolist() == [False, True, False, False, False, False]
     assert torch.equal(pick, ppick), "kernel vs plain: tolerance 0"
+
+
+def _hold_seed_draw(vk, d2, offsets, us):
+    """The seed-draw kernel against its plain version for each [G] uniform
+    vector, exactly, and against itself on a second run."""
+    for u in us:
+        u = torch.from_numpy(np.ascontiguousarray(u, np.float64)).to(d2.device)
+        pick, zero = vk.vocab_seed_draw(d2, offsets, u)
+        again = vk.vocab_seed_draw(d2, offsets, u)
+        torch.cuda.synchronize()
+        ppick, pzero = vk.vocab_seed_draw_plain(d2, offsets, u)
+        assert torch.equal(zero, pzero) and torch.equal(pick, ppick), "kernel vs plain: tolerance 0"
+        assert torch.equal(pick, again[0]) and torch.equal(zero, again[1]), "two runs differ"
+
+
+@pytest.mark.parametrize("name", SEED_DRAW_CASES)
+def test_vocab_seed_draw_kernel_adversarial(cuda_device, name):
+    """The tiled scan and the chain on the host models' adversarial nodes
+    (tests/test_torch_vocab_card.py), all in one call, with uniforms on and
+    beside the cdf's own values: the tiles launch only where a node has
+    more than SEED_CHAIN_MAX rows."""
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    rng = np.random.default_rng(70 + SEED_DRAW_CASES.index(name))
+    nodes = seed_draw_case(name, rng)
+    d2 = torch.from_numpy(np.concatenate(nodes)).to(cuda_device)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum([len(x) for x in nodes])]).astype(np.int64))
+    launches = vk.VOCAB_SEED_DRAW_KERNEL.launches
+    _hold_seed_draw(vk, d2, offsets.to(cuda_device), seed_draw_uniforms(nodes, rng))
+    per_call = vk.SEED_KERNELS if max(len(x) for x in nodes) > vk.SEED_CHAIN_MAX else 1
+    assert vk.VOCAB_SEED_DRAW_KERNEL.launches == launches + 2 * 6 * per_call
+
+
+def test_vocab_seed_draw_kernel_full_size(cuda_device):
+    """One node of 4,000,000 rows (level 0 of the full-size tree) and
+    99,907 nodes of about 40 (its level 5: the chain kernel alone, though
+    the level holds millions of rows)."""
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    rng = np.random.default_rng(71)
+    big = rng.binomial(256, 0.45, 4_000_000).astype(np.int32)
+    big[rng.integers(0, len(big), 40_000)] = 0
+    _hold_seed_draw(vk, torch.from_numpy(big).to(cuda_device),
+                    torch.tensor([0, len(big)], dtype=torch.int64, device=cuda_device),
+                    seed_draw_uniforms([big], rng))
+    sizes = rng.integers(1, 80, 99_907)
+    small = rng.integers(0, 257, int(sizes.sum())).astype(np.int32)
+    nodes = np.split(small, np.cumsum(sizes)[:-1])
+    launches = vk.VOCAB_SEED_DRAW_KERNEL.launches
+    _hold_seed_draw(vk, torch.from_numpy(small).to(cuda_device),
+                    torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)).to(cuda_device),
+                    seed_draw_uniforms(nodes, rng)[:3])
+    assert vk.VOCAB_SEED_DRAW_KERNEL.launches == launches + 2 * 3, "one kernel a call"
+
+
+def _hold_majority(vk, rows, assign, offsets, k):
+    centers, sizes = vk.vocab_majority(rows, assign, offsets, k)
+    again = vk.vocab_majority(rows, assign, offsets, k)
+    torch.cuda.synchronize()
+    pc, ps = vk.vocab_majority_plain(*counted_rows(rows, assign, offsets, k), k)
+    assert torch.equal(centers, pc) and torch.equal(sizes, ps), f"k={k}: tolerance 0"
+    assert torch.equal(centers, again[0]) and torch.equal(sizes, again[1]), "two runs differ"
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_vocab_majority_kernel_adversarial(cuda_device, k):
+    """The bit-transposed count against the plain version:
+    nodes that end inside a k-word, a group, a chunk; empty clusters; rows in
+    no cluster; runs of repeated rows."""
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    rows, assign, offsets = majority_case(np.random.default_rng(80 + k), k)
+    _hold_majority(vk, torch.from_numpy(rows.view(np.int32)).to(cuda_device),
+                   torch.from_numpy(assign).to(cuda_device), torch.from_numpy(offsets).to(cuda_device), k)
+    assert sum(MAJORITY_SIZES) == rows.shape[0]
+
+
+def test_vocab_majority_kernel_full_size(cuda_device):
+    """One node of 4,000,000 rows and 99,907 nodes of about 40, k = 10."""
+    from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
+
+    rng = np.random.default_rng(81)
+    for sizes in ([4_000_000], rng.integers(1, 80, 99_907)):
+        rows, assign, offsets = majority_case(rng, 10, sizes)
+        _hold_majority(vk, torch.from_numpy(rows.view(np.int32)).to(cuda_device),
+                       torch.from_numpy(assign).to(cuda_device), torch.from_numpy(offsets).to(cuda_device), 10)
 
 
 def test_vocab_tree_on_cuda_matches_cpu(cuda_device):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SEED_DRAW_CASES, counted_rows, majority_case, seed_draw_case
 from orb_slam2_2021_tpu.place import vocab as jvocab
 from orb_slam2_2021_tpu_torch.ops import vocab_kernels as vk
 from orb_slam2_2021_tpu_torch.place import vocab as tvocab
@@ -114,13 +115,15 @@ def test_seed_draw_plain_equals_numpy_choice():
         assert np.array_equal(np.where(zero.numpy(), -1, pick.numpy()), want), seed
 
 
-def test_majority_plan_covers_each_node(monkeypatch):
-    """The CUDA wrapper's chunk plan, replayed in numpy as the kernel walks
-    it, gives the plain version's counts: every row counted once, in its own
-    node's chunk, a slot for each node of several chunks."""
-    monkeypatch.setattr(vk, "MAJORITY_CHUNK", 16)
+def test_majority_plan_covers_each_node():
+    """The CUDA wrapper's chunk plan, replayed in numpy as the kernels walk
+    it, gives the plain version's counts: a node of at most MAJORITY_SMALL
+    rows is counted whole by one warp and has no chunk; every row of a larger
+    node is counted once, in its own node's chunks, with a slot for each node
+    of several chunks."""
+    small_max, chunk = vk.MAJORITY_SMALL, vk.MAJORITY_CHUNK
     rng = np.random.default_rng(8)
-    sizes = np.array([0, 3, 16, 17, 40, 1, 33])
+    sizes = np.array([0, 3, small_max, small_max + 1, chunk, chunk + 1, 2 * chunk + 40, 1, small_max + 88])
     k = 4
     rows = _descs(rng, int(sizes.sum()))
     assign = rng.integers(0, k, int(sizes.sum()))
@@ -129,13 +132,17 @@ def test_majority_plan_covers_each_node(monkeypatch):
     bits = np.unpackbits(rows.view(np.uint8), axis=1, bitorder="little").astype(np.int64)
     counts = np.zeros((len(sizes), k, 256), np.int64)
     seen = np.zeros(int(sizes.sum()), np.int64)
+    small = [g for g in range(len(sizes)) if sizes[g] <= small_max]
+    for g in small:  # the small-node kernel: a warp takes the whole node
+        np.add.at(counts[g], assign[off[g]: off[g + 1]], bits[off[g]: off[g + 1]])
+        seen[off[g]: off[g + 1]] += 1
+    assert not set(plan.chunk_node.tolist()) & set(small)
     for r0, nr, node in zip(plan.chunk_row0.tolist(), plan.chunk_rows.tolist(), plan.chunk_node.tolist()):
-        assert off[node] <= r0 and r0 + nr <= off[node + 1]
-        for r in range(r0, r0 + nr):
-            counts[node, assign[r]] += bits[r]
-            seen[r] += 1
+        assert off[node] <= r0 and r0 + nr <= off[node + 1] and nr <= chunk
+        np.add.at(counts[node], assign[r0: r0 + nr], bits[r0: r0 + nr])
+        seen[r0: r0 + nr] += 1
     assert (seen == 1).all()
-    multi = [g for g in range(len(sizes)) if sizes[g] > 16]
+    multi = [g for g in range(len(sizes)) if sizes[g] > chunk]
     assert plan.slot_node.tolist() == multi
     assert [plan.node_slot[g].item() for g in multi] == list(range(len(multi)))
     assert (plan.node_slot[[g for g in range(len(sizes)) if g not in multi]] == -1).all()
@@ -274,3 +281,373 @@ def test_twins_refuse_the_reference_package(tmp_path):
         l4.output_path(os.path.join(REPO, "orb_slam2_2021_tpu", "data", "vocab_k10_L6.npz"))
     assert l4.output_path(str(tmp_path / "a" / "v.npz")) == str(tmp_path / "a" / "v.npz")
     assert os.path.isdir(tmp_path / "a")
+
+
+# ------------------------------------------------- host models of the kernels
+#
+# numpy models of what csrc/vocab.cu's redesigned kernels compute, step by
+# step, held bit for bit against numpy's own functions and the plain versions.
+
+_SEED_NONE, _SEED_BAD = -30000, 30000
+_SEED_ZERO, _SEED_UNCERTAIN, _SEED_NOT_BINADE = -30001, -30002, -20000
+_FN_ID = (0, 0, 0, 1, _SEED_NONE)  # inc0, inc1, parity out from even, from odd, binade
+
+
+def _exponent(x):
+    return (np.asarray(x, np.float64).view(np.int64) >> 52) - 1023
+
+
+def _seed_classes(D, s, n):
+    """vocab.cu seed_class: the binade of c where the prefix is D, where
+    D / s lies clear of a power of two by the margin (n + 64) 2^-51."""
+    inv_s = np.float64(1.0) / np.float64(s)
+    delta = np.float64(n + 64) * np.float64(2.0 ** -51)
+    x = D.astype(np.float64) * inv_s
+    elo, ehi = _exponent(x * (np.float64(1.0) - delta)), _exponent(x * (np.float64(1.0) + delta))
+    return np.where(D == 0, _SEED_ZERO, np.where(elo == ehi, elo, _SEED_UNCERTAIN))
+
+
+def _fn_compose(a, b):
+    """vocab.cu compose: run a, then run b."""
+    if a[4] == _SEED_NONE:
+        return b
+    if b[4] == _SEED_NONE:
+        return a
+    p0, p1 = a[2], a[3]
+    return (a[0] + (b[1] if p0 else b[0]), a[1] + (b[1] if p1 else b[0]),
+            b[3] if p0 else b[2], b[3] if p1 else b[2], a[4] if a[4] == b[4] else _SEED_BAD)
+
+
+class _SeedModel:
+    """The tiled seed draw of one node (vocab_seed_tile_kernel,
+    vocab_seed_walk_kernel, walk_tile, walk_chunks) with tiles of `tile`
+    rows: per row its run function or a break, per tile its segment, the walk
+    from c = 0 over groups of 32 tiles (a group without a break composed into
+    one run, else tile by tile; a far-apart middle walked in 32-row chunks),
+    c at each group's end, and the pick: the first group, tile, chunk and row
+    whose c passes u. Counts the rows stepped with a float add (`serial`),
+    the ties and the tiles walked in chunks."""
+
+    def __init__(self, d2, tile=4096):
+        self.n, self.tile = len(d2), tile
+        self.d2 = d2.astype(np.int64)
+        self.s = int(self.d2.sum())
+        self.serial = self.descents = 0
+        if self.s == 0:
+            return
+        self.q = self.d2.astype(np.float64) / np.float64(self.s)
+        D = np.cumsum(self.d2)
+        cp, cc = _seed_classes(D - self.d2, self.s, self.n), _seed_classes(D, self.s, self.n)
+        run = (self.d2 > 0) & (cp == cc) & (cc > _SEED_NOT_BINADE)
+        e = np.where(run, cc, 0)
+        x = np.ldexp(self.q, 52 - e)  # q / u
+        run &= x < 2.0 ** 52
+        a = np.floor(x)
+        frac, a = x - a, a.astype(np.int64)
+        tie = run & (frac == 0.5)
+        inc = a + (frac > 0.5)
+        self.ties = int(tie.sum())
+        self.fn = [(int(i0), int(i1), int(p0), int(p1), int(b)) for i0, i1, p0, p1, b in zip(
+            np.where(tie, a + (a & 1), inc), np.where(tie, a + ((a + 1) & 1), inc),
+            np.where(tie, 0, inc & 1), np.where(tie, 0, (inc & 1) ^ 1), e)]
+        self.brk = (self.d2 > 0) & ~run
+        self.segs = [self._segment(t0, min(self.n, t0 + tile)) for t0 in range(0, self.n, tile)]
+        c = np.float64(0.0)
+        self.gend = []  # c at each group's end
+        for g0 in range(0, len(self.segs), 32):
+            if not any(sg[0] for sg in self.segs[g0: g0 + 32]):
+                f = _FN_ID
+                for sg in self.segs[g0: g0 + 32]:
+                    f = _fn_compose(f, sg[1])
+                c = self._apply(c, f)
+            else:
+                for j in range(g0, min(len(self.segs), g0 + 32)):
+                    c = self._walk_tile(c, j)
+            self.gend.append(c)
+        self.total = c
+
+    def _walk_tile(self, c, j):
+        brk, head, tail, fb, lb = self.segs[j]
+        if brk and lb - fb >= 32:
+            self.descents += 1
+            return self._walk_chunks(c, j * self.tile, min(self.n, (j + 1) * self.tile))[0]
+        c = self._apply(c, head)
+        return self._apply(self._step(c, fb, lb + 1), tail) if brk else c
+
+    def _segment(self, lo, hi):
+        """(break?, run before the first break, run after the last, first and
+        last break) of rows lo..hi-1, as seg_push folds them."""
+        head = tail = _FN_ID
+        brk, fb, lb = False, -1, -1
+        for i in range(lo, hi):
+            if self.d2[i] == 0:
+                continue
+            if self.brk[i]:
+                fb = i if not brk else fb
+                brk, lb, tail = True, i, _FN_ID
+            elif brk:
+                tail = _fn_compose(tail, self.fn[i])
+            else:
+                head = _fn_compose(head, self.fn[i])
+        return brk, head, tail, fb, lb
+
+    @staticmethod
+    def _apply(c, f):
+        """apply_fn: an integer add to the bits of c, its binade checked."""
+        if f[4] == _SEED_NONE:
+            return c
+        bits = int(np.float64(c).view(np.int64))
+        assert f[4] != _SEED_BAD and bits >> 52 == f[4] + 1023, "c outside the run's binade"
+        bits += f[1] if bits & 1 else f[0]
+        assert bits >> 52 == f[4] + 1023, "a run left its binade"
+        return np.int64(bits).view(np.float64)
+
+    def _step(self, c, lo, hi):
+        for i in range(lo, hi):
+            c = c + self.q[i]
+            self.serial += 1
+        return c
+
+    def _walk_chunks(self, c, lo, hi, u=None):
+        for c0 in range(lo, hi, 32):
+            c1 = min(hi, c0 + 32)
+            brk, head, tail, fb, lb = self._segment(c0, c1)
+            start = c
+            c = self._apply(c, head)
+            if brk:
+                c = self._apply(self._step(c, fb, lb + 1), tail)
+            if u is not None and c / self.total > u:
+                for i in range(c0, c1):
+                    start = start + self.q[i]
+                    if start / self.total > u:
+                        return start, i
+                raise AssertionError("a chunk passed u and none of its rows")
+        return c, None
+
+    def pick(self, u):
+        """(pick, zero): the first group, tile, chunk and row whose c passes u."""
+        if self.s == 0:
+            return 0, True
+        for gi, ge in enumerate(self.gend):
+            if ge / self.total > u:
+                c = self.gend[gi - 1] if gi else np.float64(0.0)
+                for j in range(32 * gi, min(len(self.segs), 32 * gi + 32)):
+                    start, c = c, self._walk_tile(c, j)
+                    if c / self.total > u:
+                        return self._walk_chunks(start, j * self.tile, min(self.n, (j + 1) * self.tile), u)[1], False
+                raise AssertionError("a group passed u and none of its tiles")
+        return self.n, False
+
+
+def _chain_model_pick(d2, u):
+    """vocab_seed_chain_kernel: the chain in row order, c at each 32-row
+    chunk's end, the first chunk and then the first row whose c passes u."""
+    s = int(d2.astype(np.int64).sum())
+    if s == 0:
+        return 0, True
+    c = np.cumsum(d2.astype(np.float64) / np.float64(s))
+    ends = c[np.minimum(np.arange(31, len(d2) + 31, 32), len(d2) - 1)]
+    passed = np.nonzero(ends / c[-1] > u)[0]
+    if not len(passed):
+        return len(d2), False
+    rows = np.arange(32 * passed[0], min(len(d2), 32 * passed[0] + 32))
+    return int(rows[np.nonzero(c[rows] / c[-1] > u)[0][0]]), False
+
+
+def _numpy_pick(d2, u):
+    s = d2.astype(np.int64).sum()
+    if s == 0:
+        return 0, True
+    cdf = np.cumsum(d2.astype(np.float64) / s)
+    cdf /= cdf[-1]
+    return int(np.searchsorted(cdf, u, side="right")), False
+
+
+
+
+def _adversarial_us(d2, rng):
+    """Uniforms from numpy's stream and on and beside the cdf's own values."""
+    us = list(rng.random(4)) + [0.0, np.nextafter(1.0, 0.0)]
+    s = d2.astype(np.int64).sum()
+    if s:
+        cdf = np.cumsum(d2.astype(np.float64) / s)
+        cdf /= cdf[-1]
+        for i in rng.integers(0, len(d2), 4):
+            us += [cdf[i], np.nextafter(cdf[i], 0.0), np.nextafter(cdf[i], 2.0)]
+    return us
+
+
+@pytest.mark.parametrize("name", SEED_DRAW_CASES)
+def test_seed_draw_model_equals_numpy(name):
+    """The tiled scan's model reproduces numpy's float64 cumsum at every
+    group's end, bit for bit, and its pick is numpy's rng.choice's and the
+    plain version's, at the real tile size and at 64-row tiles (many tiles,
+    chunk walks); nodes of at most SEED_CHAIN_MAX rows through the chain's
+    model too. The serial steps stay few."""
+    rng = np.random.default_rng(SEED_DRAW_CASES.index(name))
+    nodes = seed_draw_case(name, rng)
+    ties = descents = 0
+    for d2 in nodes:
+        n = len(d2)
+        models = [_SeedModel(d2, vk.SEED_TILE), _SeedModel(d2, 64)]
+        s = int(d2.astype(np.int64).sum())
+        if s:
+            cs = np.cumsum(d2.astype(np.float64) / s)
+            for m in models:
+                ends = np.minimum(np.arange(32 * m.tile - 1, n + 32 * m.tile - 1, 32 * m.tile), n - 1)
+                assert np.array_equal(np.array(m.gend), cs[ends]), "c at the groups' ends"
+                assert m.serial <= 64 + 8 * np.log2(n + 1) + n // m.tile, m.serial
+            ties += models[1].ties
+            descents += sum(m.descents for m in models)
+        us = _adversarial_us(d2, rng)
+        off = torch.tensor([0, n], dtype=torch.int64)
+        plain = [vk.vocab_seed_draw_plain(torch.from_numpy(d2), off, torch.tensor([u], dtype=torch.float64))
+                 for u in us]
+        for u, (pp, pz) in zip(us, plain):
+            want = _numpy_pick(d2, u)
+            assert (int(pp[0]), bool(pz[0])) == want, (n, u)
+            for m in models:
+                assert m.pick(u) == want, (name, n, m.tile, u)
+            if n <= vk.SEED_CHAIN_MAX:
+                assert _chain_model_pick(d2, u) == want
+        if s:  # the stream's own draw
+            r1, r2 = np.random.default_rng(n), np.random.default_rng(n)
+            assert models[0].pick(r2.random()) == (r1.choice(n, p=d2 / d2.astype(np.int64).sum()), False)
+    if name in ("ties", "ties_over_chain"):
+        assert ties > 100, "the tie branch ran"
+    if name in ("random", "256_then_ones"):
+        assert descents > 0, "a tile was walked in chunks"
+
+
+def _bits_t(x):
+    return np.asarray(x, np.uint64).astype(np.uint32)
+
+
+def _transpose32(x):
+    """vocab.cu transpose32 over a warp: lane r's word -> lane b's mask of
+    bit b over the 32 lanes, by five shuffle stages."""
+    x = np.asarray(x, np.uint64)
+    lanes = np.arange(32)
+    for j, low in ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555)):
+        y, high = x[lanes ^ j], np.uint64(~low & 0xFFFFFFFF)
+        low, jj = np.uint64(low), np.uint64(j)
+        x = np.where(lanes & j, (x & high) | ((y >> jj) & low), (x & low) | ((y << jj) & high))
+    return _bits_t(x & np.uint64(0xFFFFFFFF))
+
+
+def _quad_transpose(y):
+    """vocab.cu quad_transpose: y [32 lanes, 4]; lane 4g + t's y[s] -> lane
+    4g + s's y[t], by the two xor stages."""
+    y = y.copy()
+    lanes, tig = np.arange(32), np.arange(32) & 3
+    for j, pairs in ((2, ((0, 2), (1, 3))), (1, ((0, 1), (2, 3)))):
+        hi = (tig & j) != 0
+        send = [np.where(hi, y[:, lo_], y[:, hi_]) for lo_, hi_ in pairs]
+        recv = [v[lanes ^ j] for v in send]
+        for (lo_, hi_), r in zip(pairs, recv):
+            y[:, lo_] = np.where(hi, r, y[:, lo_])
+            y[:, hi_] = np.where(hi, y[:, hi_], r)
+    return y
+
+
+def _popc(x):
+    return np.array([bin(int(v)).count("1") for v in np.ravel(x)]).reshape(np.shape(x))
+
+
+def _majority_model(rows, assign, offsets, k):
+    """The majority's warps per node (128 rows a group, lane = row, k-word s
+    = rows 32 s..): membership ballots as A, transposed bit columns as B,
+    the 1-bit MMA's fragments in their registers, then the pack from the
+    counts."""
+    G = len(offsets) - 1
+    lanes = np.arange(32)
+    g_of, tig = lanes >> 2, lanes & 3
+    centers = np.zeros((G, k, 8), np.uint32)
+    sizes = np.zeros((G, k), np.int64)
+    for node in range(G):
+        cnt = np.zeros((16, 256), np.int64)
+        sz = np.zeros(16, np.int64)
+        for r0 in range(offsets[node], offsets[node + 1], 128):
+            r_end = offsets[node + 1]
+            x = np.zeros((4, 32, 8), np.uint32)
+            a = np.full((4, 32), -1)
+            for s in range(4):
+                for lane in range(32):
+                    r = r0 + 32 * s + lane
+                    if r < r_end:
+                        x[s, lane] = rows[r]
+                        a[s, lane] = assign[r] if 0 <= assign[r] < k else -1
+            mb = np.array([[sum(1 << int(ln) for ln in lanes if a[s, ln] == c) for c in range(16)]
+                           for s in range(4)], np.uint64)  # ballots
+            a0 = mb[tig, g_of]  # lane (g, tig): cluster g in k-word tig
+            a1 = mb[tig, g_of + 8]
+            for lane in range(32):  # each lane its k-word's; summed over the quad
+                sz[g_of[lane]] += _popc(a0[lane])
+                sz[g_of[lane] + 8] += _popc(a1[lane])
+            for w in range(8):
+                y = np.stack([_transpose32(x[s, :, w]) for s in range(4)], axis=1)
+                z = _quad_transpose(y)
+                for t in range(4):  # n-tile (w, t): column n <-> bit 32 w + 4 n + t
+                    A = np.zeros((16, 4), np.uint64)  # [cluster, k-word], k-words 4..7 empty
+                    B = np.zeros((4, 8), np.uint64)   # [k-word, column]
+                    for lane in range(32):
+                        A[g_of[lane], tig[lane]] = a0[lane]
+                        A[g_of[lane] + 8, tig[lane]] = a1[lane]
+                        B[tig[lane], g_of[lane]] = z[lane, t]
+                    C = np.array([[sum(_popc(int(A[m, kw]) & int(B[kw, col])) for kw in range(4))
+                                   for col in range(8)] for m in range(16)])
+                    for lane in range(32):  # c0..c3 of lane (g, tig)
+                        g, q = g_of[lane], tig[lane]
+                        for m, col, v in ((g, 2 * q, C[g, 2 * q]), (g, 2 * q + 1, C[g, 2 * q + 1]),
+                                          (g + 8, 2 * q, C[g + 8, 2 * q]), (g + 8, 2 * q + 1, C[g + 8, 2 * q + 1])):
+                            cnt[m, 32 * w + 4 * col + t] += v
+        maj = 2 * cnt[:k] >= sz[:k, None]
+        centers[node] = np.packbits(maj.astype(np.uint8), axis=-1, bitorder="little").view(np.uint32)
+        sizes[node] = sz[:k]
+    return centers, sizes
+
+
+MAJORITY_MODEL_SIZES = {
+    "small": (0, 1, 31, 33, 128, 129, 300),
+    "ragged": (95, 160, 257, 383),
+    "warp_limit": (511, 512, 513),  # the last node a warp takes, the first a chunk takes
+}
+
+
+@pytest.mark.parametrize("nodes", sorted(MAJORITY_MODEL_SIZES))
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_majority_model_equals_plain(k, nodes):
+    """The bit-transposed count's model gives the plain version's
+    centroids and sizes, with empty clusters, rows whose cluster lies
+    outside 0..k-1, and nodes that end inside a k-word or a group."""
+    sizes = MAJORITY_MODEL_SIZES[nodes]
+    rows, assign, off = majority_case(np.random.default_rng(90 + k + sum(sizes)), k, sizes)
+    centers, sizes = _majority_model(rows, assign, off, k)
+    pc, ps = vk.vocab_majority_plain(*counted_rows(_t(rows), torch.from_numpy(assign), torch.from_numpy(off), k), k)
+    assert np.array_equal(centers.view(np.int32), pc.numpy())
+    assert np.array_equal(sizes, ps.numpy())
+
+
+def _cuda_constants():
+    """csrc/vocab.cu's `constexpr int` sizes and each extern "C" launcher's
+    number of parameters."""
+    import re
+
+    with open(os.path.join(REPO, "orb_slam2_2021_tpu_torch", "csrc", "vocab.cu")) as f:
+        src = f.read()
+    consts = {m[1]: int(m[2]) for m in re.finditer(r"constexpr int (\w+) = (\d+);", src)}
+    params = {m[1]: len(m[2].split(",")) for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    return consts, params
+
+
+def test_kernel_sizes_match_the_source():
+    """The wrappers' sizes (the plans, scratch and launch counts follow
+    them) are the kernels' compile-time ones, and the ctypes signatures have
+    the launchers' number of parameters."""
+    consts, params = _cuda_constants()
+    assert vk.MAX_K == consts["kMaxK"]
+    assert vk.MAJORITY_SMALL == consts["kMajSmallRows"]
+    assert vk.SEED_CHAIN_MAX == consts["kChainMax"]
+    assert vk.SEED_TILE == consts["kTileThreads"] * consts["kTileRowsPerThread"]
+    for kern in vk.KERNELS:
+        assert len(kern.argtypes) == params[kern.symbol], kern.symbol
