@@ -267,8 +267,9 @@ def result_line(e2e_fps, sys_, gt, frontend, scenario_b, device):
     ba = sys_.local_mapper.ba_solve_times
     ba_ms_iter = (1e3 * sum(d for d, _ in ba[1:]) / max(sum(n for _, n in ba[1:]), 1)
                   if len(ba) > 1 else -1.0)
-    gba = sys_.loop_closer.gba_iter_times if sys_.loop_closer else []
-    gba_ms_iter = 1e3 * float(np.mean(gba)) if gba else -1.0
+    gba = [r for r in sys_.loop_closer.gba_runs if r["iters"]] if sys_.loop_closer else []
+    gba_ms_iter = (1e3 * sum(r["seconds"] for r in gba) / sum(r["iters"] for r in gba)
+                   if gba else -1.0)
     lost = lost_frames(sys_)
     lost_spans = []
     for f in lost:

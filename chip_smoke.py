@@ -1073,8 +1073,8 @@ def drive_kitti_default(dev, frames, gt, map_path):
         f0 = loops[0][0]
         log(f"loop frame {f0}: {ms[f0]:.1f} ms in all; compute_sim3 {1e3 * lt['compute_sim3']:.1f} ms, "
             f"correction {1e3 * lt['correct']:.1f} ms, essential graph {1e3 * lt['essential_graph']:.1f} ms, "
-            f"global BA {1e3 * lt['global_ba']:.1f} ms ({len(lc.gba_iter_times)} iterations, "
-            f"{1e3 * lc.gba_iter_times[0]:.1f} ms each); grid replayed at frames {replays}")
+            f"global BA {1e3 * lt['global_ba']:.1f} ms (runs {lc.gba_runs}); grid replayed at frames "
+            f"{replays}")
     mapping_units = counts["mapping_and_loop"] - counts["loop_closing"]
     log(f"hamming_best2 launches: {launches} in the drive, {mapping_units} from the mapping units, "
         f"{counts['loop_closing']} from loop closing ({counts['compute_sim3']} in compute_sim3, "
@@ -1087,7 +1087,7 @@ def drive_kitti_default(dev, frames, gt, map_path):
     if (loops[0][1], loops[0][2]) != REF_LOOP_PAIR or abs(loops[0][0] - REF_LOOP_FRAME) > 5:
         raise AssertionError(f"loop {loops[0]} is not the reference's pair {REF_LOOP_PAIR} "
                              f"near frame {REF_LOOP_FRAME}")
-    if len(lc.gba_iter_times) < 1:
+    if not any(r["iters"] for r in lc.gba_runs):
         raise AssertionError("global BA never ran")
     if not replays or replays[0] != loops[0][0]:
         raise AssertionError(f"the grid was not replayed on the loop frame: {replays}")
@@ -1785,11 +1785,15 @@ def drive_async_bench(dev, frames, gt, sync_ms):
     """Phase 15: bench_torch.py's drive (System(kitti_stereo_config(),
     async_mode=True), prefetch, the orbit's frames): every frame tracked,
     ATE, invariants, threads joined; reports the loop, global BA, launches
-    per thread, the lane's median and p90 (and its waits for the map lock)
+    per thread, the lane's median and p90 (and its waits for the map lock,
+    the `lock.wait` spans of io/trace.py's recorder on the lane's thread)
     beside phase 11's synchronous median on the same frames, and fps."""
+    import threading
+
     import bench_torch
 
     from orb_slam2_2021_tpu_torch.config import kitti_stereo_config
+    from orb_slam2_2021_tpu_torch.io import trace
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
     from orb_slam2_2021_tpu_torch.pipeline.system import System
 
@@ -1806,8 +1810,12 @@ def drive_async_bench(dev, frames, gt, sync_ms):
     lc._correct_loop = correct_hook
     idle = []  # was the worker idle as each frame began?
     _zero_launch_counts()
-    fps = bench_torch.drive(sys_, frames, bench_torch.WARMUP_FRAMES,
-                            hook=lambda i: idle.append(sys_.local_mapper.idle()))
+    trace.start()
+    try:
+        fps = bench_torch.drive(sys_, frames, bench_torch.WARMUP_FRAMES,
+                                hook=lambda i: idle.append(sys_.local_mapper.idle()))
+    finally:
+        rec = trace.stop()
     sys_.shutdown()
     _check_threads(sys_, "async bench drive")
     best2, matrix = _launch_counts()
@@ -1818,7 +1826,8 @@ def drive_async_bench(dev, frames, gt, sync_ms):
     w = bench_torch.WARMUP_FRAMES
     ms = 1e3 * np.asarray(sys_.frame_times)
     sync = np.asarray(sync_ms)[w:]
-    lock = 1e3 * np.asarray(sys_.lock_waits)[w:]
+    waits = rec.seconds_by_key("lock.wait", tid=threading.get_native_id())  # frame id -> s
+    lock = 1e3 * np.asarray([waits.get(i, 0.0) for i in range(len(sys_.frame_times))])[w:]
     idle = np.asarray(idle[w:], bool)
     log(f"phase 15, async prefetch drive (bench_torch.drive) {cfg.width}x{cfg.height}: "
         f"{states.count('OK')}/{len(frames)} tracked, {sys_.map.n_kf} live keyframes "

@@ -4,7 +4,8 @@ orb_slam2_2021_tpu/frontend/features.py `build_pyramid_stack`,
 
 All eyes x all pyramid levels sit on one zero-padded bf16 canvas
 [B, L, Hc, Wc]; FAST, selection, the 7x7 blur, one 31x31 patch gather, the IC
-angle and rBRIEF each run once over the whole batch.
+angle and rBRIEF each run once over the whole batch (the spans
+`build.pyramid`, `build.fast`, `build.select`, `build.describe`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..io import trace
 from ..ops.brief import brief_from_patches
 from ..ops.fast import fast_detect_batched
 from ..ops.image import gaussian_blur_batched, pyramid_shapes, resize_bilinear
@@ -96,43 +98,47 @@ def extract_orb_batched(images, cfg):
     L = cfg.n_levels
     dev = images.device
     counts = level_feature_counts(cfg.n_features, L, cfg.scale_factor)
-    raw_stack, ext_h, ext_w = build_pyramid_stack(images, cfg)
+    with trace.span("build.pyramid"):
+        raw_stack, ext_h, ext_w = build_pyramid_stack(images, cfg)
     _, _, Hc, Wc = raw_stack.shape
 
-    ext_h_t = torch.from_numpy(np.tile(ext_h, B)).to(dev)
-    ext_w_t = torch.from_numpy(np.tile(ext_w, B)).to(dev)
-    strict, relaxed = fast_detect_batched(
-        raw_stack.reshape(B * L, Hc, Wc), float(cfg.ini_fast_th), float(cfg.min_fast_th),
-        cfg.edge_threshold, ext_h_t, ext_w_t,
-    )
-    n_top = max(counts)
-    ys, xs, resp, valid = select_keypoints_batched(strict, relaxed, n_top, cfg.cell_size)
-    ys, xs, resp, valid = (a.reshape(B, L, n_top) for a in (ys, xs, resp, valid))
+    with trace.span("build.fast"):
+        ext_h_t = torch.from_numpy(np.tile(ext_h, B)).to(dev)
+        ext_w_t = torch.from_numpy(np.tile(ext_w, B)).to(dev)
+        strict, relaxed = fast_detect_batched(
+            raw_stack.reshape(B * L, Hc, Wc), float(cfg.ini_fast_th), float(cfg.min_fast_th),
+            cfg.edge_threshold, ext_h_t, ext_w_t,
+        )
+    with trace.span("build.select"):
+        n_top = max(counts)
+        ys, xs, resp, valid = select_keypoints_batched(strict, relaxed, n_top, cfg.cell_size)
+        ys, xs, resp, valid = (a.reshape(B, L, n_top) for a in (ys, xs, resp, valid))
 
-    # each level's budget off the front (candidates are rank-ordered)
-    ys = torch.cat([ys[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)      # [B, N]
-    xs = torch.cat([xs[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)
-    resp = torch.cat([resp[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)
-    valid = torch.cat([valid[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)
-    octave = torch.cat(
-        [torch.full((B, n), lvl, dtype=torch.int32, device=dev) for lvl, n in enumerate(counts)],
-        dim=1,
-    )
+        # each level's budget off the front (candidates are rank-ordered)
+        ys = torch.cat([ys[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)      # [B, N]
+        xs = torch.cat([xs[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)
+        resp = torch.cat([resp[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)
+        valid = torch.cat([valid[:, lvl, :n] for lvl, n in enumerate(counts)], dim=1)
+        octave = torch.cat(
+            [torch.full((B, n), lvl, dtype=torch.int32, device=dev) for lvl, n in enumerate(counts)],
+            dim=1,
+        )
 
     # one patch gather from the blurred canvas feeds orientation and BRIEF
-    blur_stack = gaussian_blur_batched(raw_stack)
-    oct_l = octave.long()
-    eh = torch.from_numpy(ext_h).to(dev)[oct_l]
-    ew = torch.from_numpy(ext_w).to(dev)[oct_l]
-    y0 = torch.minimum(torch.clamp_min(ys - HALF_PATCH, 0), eh - PATCH)
-    x0 = torch.minimum(torch.clamp_min(xs - HALF_PATCH, 0), ew - PATCH)
-    patches = gather_patches(blur_stack, octave, y0, x0, PATCH, PATCH).reshape(B, -1, PATCH * PATCH)
+    with trace.span("build.describe"):
+        blur_stack = gaussian_blur_batched(raw_stack)
+        oct_l = octave.long()
+        eh = torch.from_numpy(ext_h).to(dev)[oct_l]
+        ew = torch.from_numpy(ext_w).to(dev)[oct_l]
+        y0 = torch.minimum(torch.clamp_min(ys - HALF_PATCH, 0), eh - PATCH)
+        x0 = torch.minimum(torch.clamp_min(xs - HALF_PATCH, 0), ew - PATCH)
+        patches = gather_patches(blur_stack, octave, y0, x0, PATCH, PATCH).reshape(B, -1, PATCH * PATCH)
 
-    angle = angles_from_patches(patches)
-    desc = brief_from_patches(patches, angle)
+        angle = angles_from_patches(patches)
+        desc = brief_from_patches(patches, angle)
 
-    s = level_scales(cfg, dev)[oct_l]
-    xy = torch.stack([xs.to(torch.float32) * s, ys.to(torch.float32) * s], dim=-1)
+        s = level_scales(cfg, dev)[oct_l]
+        xy = torch.stack([xs.to(torch.float32) * s, ys.to(torch.float32) * s], dim=-1)
     kp = Keypoints(xy=xy, response=resp, octave=octave, angle=angle, desc=desc, valid=valid)
     return kp, raw_stack
 

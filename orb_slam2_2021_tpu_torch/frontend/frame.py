@@ -6,7 +6,8 @@ row-banded masked Hamming argmin, an 11x11 SAD slide with parabola subpixel
 refinement and a median outlier gate, all as dense tensor ops. RGB-D: one
 image, depth read from the depth map, a virtual right eye. Monocular: one
 image, no depth. RGB-D and monocular keypoints are undistorted when the
-config carries a lens model.
+config carries a lens model. Spans (io/trace.py): `build.stereo`,
+`build.depth` (depth lookup and undistortion), `build.undistort` (mono).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..io import trace
 from ..ops.hamming import hamming_best2
 from ..ops.image import pyramid_shapes
 from ..ops.undistort import undistort_points
@@ -140,14 +142,15 @@ def build_stereo_frame(image_left, image_right, cfg):
     kp2, raw_stack = extract_orb_batched(torch.stack([image_left, image_right]), cfg.orb)
     kpl = Keypoints(*(x[0] for x in kp2))
     kpr = Keypoints(*(x[1] for x in kp2))
-    h0, w0 = image_left.shape
-    shapes = pyramid_shapes(h0, w0, cfg.orb.n_levels, cfg.orb.scale_factor)
-    dev = image_left.device
-    level_h = torch.from_numpy(np.asarray([s[0] for s in shapes], np.int32)).to(dev)
-    level_w = torch.from_numpy(np.asarray([s[1] for s in shapes], np.int32)).to(dev)
-    u_right, depth, sad = stereo_match(
-        kpl, kpr, raw_stack[0], raw_stack[1], level_h, level_w, cfg
-    )
+    with trace.span("build.stereo"):
+        h0, w0 = image_left.shape
+        shapes = pyramid_shapes(h0, w0, cfg.orb.n_levels, cfg.orb.scale_factor)
+        dev = image_left.device
+        level_h = torch.from_numpy(np.asarray([s[0] for s in shapes], np.int32)).to(dev)
+        level_w = torch.from_numpy(np.asarray([s[1] for s in shapes], np.int32)).to(dev)
+        u_right, depth, sad = stereo_match(
+            kpl, kpr, raw_stack[0], raw_stack[1], level_h, level_w, cfg
+        )
     return Frame(kp=kpl, u_right=u_right, depth=depth, sad_dist=sad)
 
 
@@ -172,20 +175,23 @@ def build_rgbd_frame(image, depth_map, cfg, depth_scale: float = 1.0):
     the depth image is aligned with the raw image; the virtual right-eye
     coordinate uses the undistorted x."""
     kp = extract_orb(image, cfg.orb)
-    h, w = depth_map.shape
-    xs = torch.clamp(torch.round(kp.xy[:, 0]).to(torch.int64), 0, w - 1)
-    ys = torch.clamp(torch.round(kp.xy[:, 1]).to(torch.int64), 0, h - 1)
-    d = depth_map.reshape(-1)[ys * w + xs] * depth_scale
-    kp = _undistort_kp(kp, cfg)
-    ok = (d > 0) & kp.valid
-    neg = torch.full_like(d, -1.0)
-    u_right = torch.where(ok, kp.xy[:, 0] - cfg.bf / torch.clamp_min(d, 1e-6), neg)
-    return Frame(kp=kp, u_right=u_right, depth=torch.where(ok, d, neg), sad_dist=neg)
+    with trace.span("build.depth"):
+        h, w = depth_map.shape
+        xs = torch.clamp(torch.round(kp.xy[:, 0]).to(torch.int64), 0, w - 1)
+        ys = torch.clamp(torch.round(kp.xy[:, 1]).to(torch.int64), 0, h - 1)
+        d = depth_map.reshape(-1)[ys * w + xs] * depth_scale
+        kp = _undistort_kp(kp, cfg)
+        ok = (d > 0) & kp.valid
+        neg = torch.full_like(d, -1.0)
+        u_right = torch.where(ok, kp.xy[:, 0] - cfg.bf / torch.clamp_min(d, 1e-6), neg)
+        return Frame(kp=kp, u_right=u_right, depth=torch.where(ok, d, neg), sad_dist=neg)
 
 
 def build_mono_frame(image, cfg):
     """Monocular frame from an [H, W] float32 image: undistorted keypoints,
     no right eye and no depth."""
-    kp = _undistort_kp(extract_orb(image, cfg.orb), cfg)
-    neg = torch.full((kp.capacity,), -1.0, dtype=torch.float32, device=image.device)
-    return Frame(kp=kp, u_right=neg, depth=neg, sad_dist=neg)
+    kp = extract_orb(image, cfg.orb)
+    with trace.span("build.undistort"):
+        kp = _undistort_kp(kp, cfg)
+        neg = torch.full((kp.capacity,), -1.0, dtype=torch.float32, device=image.device)
+        return Frame(kp=kp, u_right=neg, depth=neg, sad_dist=neg)

@@ -30,6 +30,7 @@ import numpy as np
 
 from ..config import SlamConfig
 from .. import native
+from ..io import trace
 
 OBS_CAP = 32  # initial per-point observation fan-in (grows by doubling)
 
@@ -45,8 +46,9 @@ class MapStore:
         # the tracking lane for its host-side map section and by the mapping
         # worker for mutations; long device solves run outside it on padded
         # snapshots and re-validate at write-back. Reentrant so the sync mode
-        # (everything on one thread) is unchanged.
-        self.lock = threading.RLock()
+        # (everything on one thread) is unchanged. Each acquisition records
+        # its wait and hold while io/trace.py's recorder is on.
+        self.lock = trace.TracedLock(threading.RLock())
         self._alloc()
 
     def clear(self):

@@ -15,6 +15,7 @@ import torch
 
 from ..geometry.camera import PinholeCamera
 from ..geometry.se3 import se3_compose, se3_exp
+from ..io import trace
 from ..xmath import smm
 from .robust import (
     huber_weight,
@@ -91,27 +92,29 @@ def _build_normal_eq(cam, R, t, obs: PoseObs, active, use_huber: bool, delta2):
 
 def pose_optimize(cam: PinholeCamera, R0, t0, obs: PoseObs, cfg):
     """Returns (R, t, inlier_mask, n_inliers) on the device; `cfg` is the
-    reference's OptimConfig."""
+    reference's OptimConfig. Each LM round is a `track.pose_opt` span
+    (io/trace.py)."""
     dev = obs.xw.device
     delta2 = _delta2(obs, cfg.chi2_mono, cfg.chi2_stereo)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     R, t = R0, t0
     inlier = obs.valid
     for round_idx in range(cfg.pose_rounds):
-        use_huber = round_idx < 2  # reference: kernels removed in rounds 3-4
-        lam = torch.tensor(cfg.lm_lambda_init, dtype=torch.float32, device=dev)
-        for _ in range(cfg.pose_iters):
-            H, b, err = _build_normal_eq(cam, R, t, obs, inlier, use_huber, delta2)
-            Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
-            step = torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0]
-            dR, dt = se3_exp(-step)
-            Rn, tn = se3_compose(dR, dt, R, t)
-            chi_n, _ = _chi2(cam, Rn, tn, obs)
-            err_new = torch.sum(_rho(chi_n, delta2, use_huber) * inlier)
-            improved = err_new < err
-            R = torch.where(improved, Rn, R)
-            t = torch.where(improved, tn, t)
-            lam = torch.where(improved, lam * 0.5, lam * 4.0)
-        chi, behind = _chi2(cam, R, t, obs)
-        inlier = obs.valid & (chi <= delta2) & ~behind
+        with trace.span("track.pose_opt"):
+            use_huber = round_idx < 2  # reference: kernels removed in rounds 3-4
+            lam = torch.tensor(cfg.lm_lambda_init, dtype=torch.float32, device=dev)
+            for _ in range(cfg.pose_iters):
+                H, b, err = _build_normal_eq(cam, R, t, obs, inlier, use_huber, delta2)
+                Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
+                step = torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0]
+                dR, dt = se3_exp(-step)
+                Rn, tn = se3_compose(dR, dt, R, t)
+                chi_n, _ = _chi2(cam, Rn, tn, obs)
+                err_new = torch.sum(_rho(chi_n, delta2, use_huber) * inlier)
+                improved = err_new < err
+                R = torch.where(improved, Rn, R)
+                t = torch.where(improved, tn, t)
+                lam = torch.where(improved, lam * 0.5, lam * 4.0)
+            chi, behind = _chi2(cam, R, t, obs)
+            inlier = obs.valid & (chi <= delta2) & ~behind
     return R, t, inlier, torch.sum(inlier)

@@ -76,10 +76,11 @@ class _LockstepGBA:
 
     def run(self, idx: int, prob_np: BAProblem, n_iters: int, leader: bool,
             should_stop: Optional[Callable[[], bool]] = None,
-            iter_times: Optional[List[float]] = None):
+            chunks: Optional[List[list]] = None):
         """Solve problem `idx` (packed by shard_ba_problem for this group's
         size). Returns host numpy (R, t, xw), the same whole arrays on every
-        rank, or None when the leader stopped it."""
+        rank, or None when the leader stopped it; appends [LM iterations,
+        seconds] of each chunk run to `chunks`."""
         shard = upload_shard(prob_np, self.rank, self.world, self.device)
         index = flat_index(shard)
         R, t, xw = shard.R, shard.t, shard.xw
@@ -104,8 +105,8 @@ class _LockstepGBA:
                 R, t, xw, lam, _ = self._step(shard, index, R, t, xw, lam, active, True)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
-            if iter_times is not None:
-                iter_times.extend([(time.perf_counter() - t0) / k] * k)
+            if chunks is not None:
+                chunks.append([k, time.perf_counter() - t0])
             done += k
             chunk += 1
         xw_full = gather_rows(xw, self.group)
@@ -140,13 +141,13 @@ class GbaClient(_LockstepGBA):
 
     def solve(self, prob_np: BAProblem, n_iters: int,
               should_stop: Optional[Callable[[], bool]] = None,
-              iter_times: Optional[List[float]] = None):
+              chunks: Optional[List[list]] = None):
         idx = self._idx
         self._idx += 1
         if self.world > 1:
             _save_problem(_problem_path(self.work_dir, idx), prob_np, n_iters)
         return self.run(idx, prob_np, n_iters, leader=True, should_stop=should_stop,
-                        iter_times=iter_times)
+                        chunks=chunks)
 
     def shutdown(self):
         """Tell the servers to return, and drop the group: the client

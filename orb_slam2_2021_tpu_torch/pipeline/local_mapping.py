@@ -29,6 +29,14 @@ local BA solves aborts the solve between its two LM phases (mbAbortBA);
 the dense local BA runs as one unit, as the reference's does.
 The worker reads the live frame a keyframe was promoted from on its own
 stream, after an event the lane recorded (pipeline/streams.py).
+
+Spans (io/trace.py), keyed by the keyframe's id: `mapping.queued` (from
+`insert_keyframe` to the pop), `mapping.kf` around the pipeline, and inside
+it `mapping.cull_points`, `mapping.device_pass` (its readbacks
+`mapping.readback`), `local_ba` (`local_ba.window`,
+`local_ba.upload`, `local_ba.phase` with the counter `local_ba.iters`,
+`local_ba.readback`, `local_ba.writeback`), `mapping.cull_kfs`,
+`mapping.loop` and `mapping.grid`.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from ..convert import camera_from_config, desc_from_numpy, tensor, to_host
+from ..io import trace
 from ..optim.assemble import assemble_ba_problem, upload_problem
 from ..optim.ba import make_local_ba
 from ..optim.ba_cg import lm_chunk_pq
@@ -140,7 +149,9 @@ class LocalMapping:
         self.queue: Deque[tuple] = deque()  # (keyframe, BoW words or None)
         self.recent: Dict[int, int] = {}  # mp id -> created-at kf id
         self.abort_ba = False  # mbAbortBA: set by a newly inserted keyframe
-        self.ba_solve_times: List[tuple] = []  # (seconds, lm_iterations)
+        # (seconds, LM iterations run) of each local BA that returned a result
+        self.ba_solve_times: List[tuple] = []
+        self._queued_at: Dict[int, int] = {}  # keyframe -> insert stamp, while tracing
         self._devkf: Optional[DeviceKFStore] = None
         self.loop_closer = None  # set by System when loop closing is on
         self.monocular = False   # set by System for monocular input
@@ -170,7 +181,10 @@ class LocalMapping:
         if frame is not None and self.streams is not None:
             ready = self.streams.handoff(
                 (frame.kp.desc, frame.kp.xy, frame.u_right, frame.depth, frame.kp.octave), "mapping")
+        t_insert = trace.stamp()
         with self._cv:
+            if t_insert is not None:
+                self._queued_at[k] = t_insert
             self.queue.append((k, words, frame, ready))
             self.abort_ba = True
             self._cv.notify_all()
@@ -185,7 +199,10 @@ class LocalMapping:
                 return None
             item = self.queue.popleft()
             self.abort_ba = bool(self.queue)
-            return item
+            t_insert = self._queued_at.pop(item[0], None)
+        if t_insert is not None:
+            trace.record("mapping.queued", t_insert, trace.stamp(), key=item[0])
+        return item
 
     def process_pending(self):
         while True:
@@ -242,6 +259,7 @@ class LocalMapping:
         worker may need it to finish its keyframe)."""
         with self._cv:
             self.queue.clear()
+            self._queued_at.clear()
             self.abort_ba = True
             while self._busy:
                 self._cv.wait(timeout=0.05)
@@ -256,31 +274,36 @@ class LocalMapping:
         """The per-keyframe pipeline. The map lock is held for the host
         snapshot and merge sections inside each stage, never across device
         work."""
-        if frame is not None:
-            if ready is not None:
-                self.streams.wait(ready)
-            self._store().set_from_frame(k, frame)
-        lock = self.map.lock
-        with lock:
-            if not self.map.kf_valid[k]:
-                return
-            self._cull_recent_points(k)
-        self._mapping_device_pass(k)
-        if self.map.n_kf > 2 and not self.queue:
-            self._local_ba(k)
-        with lock:
-            self._cull_keyframes(k)
-            self.map.write_epoch += 1  # the tracker's snapshot cache must refresh
-        if self.loop_closer is not None:
-            self.loop_closer.insert_keyframe(k, words)
-            self.loop_closer.process_pending()
-        if self.async_mode and self.grid_mapper is not None:
-            # the worker keeps the grid in async mode (the GridMapping thread)
+        with trace.span("mapping.kf", key=k):
+            if frame is not None:
+                if ready is not None:
+                    self.streams.wait(ready)
+                self._store().set_from_frame(k, frame)
+            lock = self.map.lock
             with lock:
-                loop_closed = bool(self.loop_closer and self.loop_closer.loop_closed_flag)
-                if loop_closed:
-                    self.loop_closer.loop_closed_flag = False
-                self.grid_mapper.process_new(loop_closed)
+                if not self.map.kf_valid[k]:
+                    return
+                with trace.span("mapping.cull_points"):
+                    self._cull_recent_points(k)
+            with trace.span("mapping.device_pass"):
+                self._mapping_device_pass(k)
+            if self.map.n_kf > 2 and not self.queue:
+                with trace.span("local_ba"):
+                    self._local_ba(k)
+            with lock, trace.span("mapping.cull_kfs"):
+                self._cull_keyframes(k)
+                self.map.write_epoch += 1  # the tracker's snapshot cache must refresh
+            if self.loop_closer is not None:
+                with trace.span("mapping.loop"):
+                    self.loop_closer.insert_keyframe(k, words)
+                    self.loop_closer.process_pending()
+            if self.async_mode and self.grid_mapper is not None:
+                # the worker keeps the grid in async mode (the GridMapping thread)
+                with lock, trace.span("mapping.grid"):
+                    loop_closed = bool(self.loop_closer and self.loop_closer.loop_closed_flag)
+                    if loop_closed:
+                        self.loop_closer.loop_closed_flag = False
+                    self.grid_mapper.process_new(loop_closed)
 
     # ------------------------------------------------------------------
     def _kf_views(self, ks, unbound_only: bool) -> KFView:
@@ -379,7 +402,8 @@ class LocalMapping:
         if tri is not None:
             neighbors, view1, views2 = tri
             match2_b, xw_b, ok_b, _ = triangulate_pair(self.cam, view1, views2, self.cfg)
-            match2_b, xw_b, ok_b = to_host(match2_b, xw_b, ok_b)
+            with trace.span("mapping.readback"):
+                match2_b, xw_b, ok_b = to_host(match2_b, xw_b, ok_b)
             with m.lock:
                 if m.kf_valid[k]:
                     self._merge_new_points(k, neighbors, match2_b, xw_b, ok_b)
@@ -387,14 +411,16 @@ class LocalMapping:
             chunks, sel, pts, back, touched = fuse
             for chunk, views in chunks:
                 bf_b, acc_b, _ = fuse_project(self.cam, views, *pts, self.cfg)
-                acc_b, bf_b = to_host(acc_b, bf_b)
+                with trace.span("mapping.readback"):
+                    acc_b, bf_b = to_host(acc_b, bf_b)
                 with m.lock:
                     for ti, kt in enumerate(chunk):
                         if m.kf_valid[kt]:
                             self._merge_fuse(sel, acc_b[ti], bf_b[ti], kt)
             for bsel, bpts, view in back:
                 best_feat, accept, _ = fuse_project(self.cam, view, *bpts, self.cfg)
-                accept, best_feat = to_host(accept[0], best_feat[0])
+                with trace.span("mapping.readback"):
+                    accept, best_feat = to_host(accept[0], best_feat[0])
                 with m.lock:
                     if m.kf_valid[k]:
                         self._merge_fuse(bsel, accept, best_feat, k)
@@ -598,23 +624,30 @@ class LocalMapping:
         """Local BA of keyframe k's window; writes back the poses and points
         and erases the outlier observations."""
         m = self.map
-        with m.lock:
+        ocfg = self.cfg.optim
+        with m.lock, trace.span("local_ba.window"):
             window = self._local_ba_window(k)
         if window is None:
             return
         prob_h, cams, cam_free, mp, obs_kf, obs_fe, obs_mp = window
         t0 = time.perf_counter()
-        prob = upload_problem(prob_h, self.device)
-        if self.cfg.optim.use_cg_local_ba:
-            out = self._solve_ba_abortable(prob)
+        with trace.span("local_ba.upload"):
+            prob = upload_problem(prob_h, self.device)
+        if ocfg.use_cg_local_ba:
+            phases: List[int] = []
+            out = self._solve_ba_abortable(prob, phases)
             if out is None:
                 return  # aborted by a newly inserted keyframe
+            iters = sum(phases)
         else:
-            out = make_local_ba(self.cfg.optim)(self.cam, prob)
-        Rn, tn, xwn, inlier = to_host(*out)
-        self.ba_solve_times.append(
-            (time.perf_counter() - t0, self.cfg.optim.local_ba_iters1 + self.cfg.optim.local_ba_iters2))
-        with m.lock:
+            with trace.span("local_ba.phase"):
+                out = make_local_ba(ocfg)(self.cam, prob)
+                iters = ocfg.local_ba_iters1 + ocfg.local_ba_iters2
+                trace.count("local_ba.iters", iters)
+        with trace.span("local_ba.readback"):
+            Rn, tn, xwn, inlier = to_host(*out)
+        self.ba_solve_times.append((time.perf_counter() - t0, iters))
+        with m.lock, trace.span("local_ba.writeback"):
             self._ba_writeback(cams, cam_free, mp, prob_h.obs_valid & ~inlier, obs_kf, obs_fe, obs_mp,
                                Rn, tn, xwn)
 
@@ -637,23 +670,32 @@ class LocalMapping:
                 m.kf_mp[kf, f] = -1
                 m._remove_observation(mp_id, kf)
 
-    def _solve_ba_abortable(self, prob):
+    def _solve_ba_abortable(self, prob, phases: Optional[List[int]] = None):
         """Two LM phases (5 Huber iterations, reclassify, 10 plain ones) with
         an abort check before each (the g2o force-stop polled through
         mbAbortBA); in synchronous mode nothing sets the flag between them.
         Returns (R, t, xw, inlier), the first phase's when the second was
-        aborted, or None when aborted before the first."""
+        aborted, or None when aborted before the first; appends each phase's
+        LM iterations to `phases`."""
         ocfg = self.cfg.optim
         if self.abort_ba:
             return None
         lam = torch.tensor(ocfg.lm_lambda_init, dtype=torch.float32, device=self.device)
-        R, t, xw, lam, inlier = lm_chunk_pq(
-            self.cam, prob, prob.R, prob.t, prob.xw, lam, prob.obs_valid.to(torch.float32),
-            True, ocfg, ocfg.local_ba_iters1)
-        if not self.abort_ba:
+        with trace.span("local_ba.phase"):
             R, t, xw, lam, inlier = lm_chunk_pq(
-                self.cam, prob, R, t, xw, lam, inlier.to(torch.float32),
-                False, ocfg, ocfg.local_ba_iters2)
+                self.cam, prob, prob.R, prob.t, prob.xw, lam, prob.obs_valid.to(torch.float32),
+                True, ocfg, ocfg.local_ba_iters1)
+            trace.count("local_ba.iters", ocfg.local_ba_iters1)
+        if phases is not None:
+            phases.append(ocfg.local_ba_iters1)
+        if not self.abort_ba:
+            with trace.span("local_ba.phase"):
+                R, t, xw, lam, inlier = lm_chunk_pq(
+                    self.cam, prob, R, t, xw, lam, inlier.to(torch.float32),
+                    False, ocfg, ocfg.local_ba_iters2)
+                trace.count("local_ba.iters", ocfg.local_ba_iters2)
+            if phases is not None:
+                phases.append(ocfg.local_ba_iters2)
         return R, t, xw, inlier
 
     # ------------------------------------------------------------------

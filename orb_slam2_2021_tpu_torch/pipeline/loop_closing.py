@@ -34,6 +34,9 @@ the global BA is solved landmark-sharded over the client's process group:
 in process for a group of one, in lockstep with `GbaServer` ranks
 otherwise; the stop request then takes effect between chunks of LM
 iterations, and the same write-back rules hold.
+
+Each global BA is a `gba.run` span (io/trace.py) with the counter
+`gba.iters`, and one entry of `gba_runs`.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch
 
 from ..convert import camera_from_config, desc_from_numpy, tensor, to_host
 from ..frontend.matchers import match_bruteforce_desc
+from ..io import trace
 from ..optim.assemble import assemble_ba_problem, global_problem_shapes, upload_problem
 from ..optim.ba_cg import flat_index, gba_iteration, lm_chunk_pq
 from ..optim.sim3_opt import PoseGraph, essential_graph_solve, optimize_sim3_relative
@@ -105,13 +109,14 @@ class LoopClosing:
         # a partial, not a lambda over self: a LoopClosing in a reference cycle
         # would keep its dist_gba's process group alive until a collection
         self.sampler = functools.partial(sample_indices, generator=self._gen)
-        self.gba_iter_times: List[float] = []
         # host-clock seconds of the last closed loop's stages
         self.loop_times: Dict[str, float] = {}
         # global BA in async mode (mbRunningGBA, mbStopGBA, mnFullBAIdx):
         # System sets async_mode and streams; each finished or dropped run
         # appends {"idx", "outcome" (written / superseded / aborted),
-        # "seconds"} to gba_runs; an exception of the thread lands in error
+        # "seconds", "iters" (LM iterations run), with dist_gba "chunks"
+        # ([iterations, seconds] of each)} to gba_runs; an exception of the
+        # thread lands in error
         self.async_mode = False
         self.streams = None
         self.running_gba = False
@@ -576,69 +581,72 @@ class LoopClosing:
         set, and the result is written back only if no newer loop
         (full_ba_idx) superseded it (`idx` None: the current index)."""
         idx = self.full_ba_idx if idx is None else idx
-        m = self.map
-        ocfg = self.cfg.optim
-        t_start = time.perf_counter()
-        with m.lock:
-            kfs = np.nonzero(m.kf_valid)[0]
-            mp = np.nonzero(m.mp_valid)[0]
-            mp = mp[m.mp_obs_n[mp] > 0]
-            if len(kfs) < 3 or len(mp) < 32:
-                return
-            n_obs = int(np.count_nonzero(m.mp_obs_kf[mp] >= 0))
-            C_pad, P_pad, O_pad = global_problem_shapes(len(kfs), len(mp), n_obs)
-            Qg = ocfg.global_ba_obs_per_point
-            use_dist = self.dist_gba is not None
-            use_rcs = not use_dist and C_pad <= 128
-            if use_dist:
-                n_dev = self.dist_gba.world
-                P_pad = ((P_pad + n_dev - 1) // n_dev) * n_dev
-            cam_free = kfs != 0
-            if use_rcs:
-                prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad=None,
-                                                    Q_pad=Qg, obs_per_point_cap=Qg, pq_layout=True)
-            else:
-                prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad)
-        if use_dist:
-            self.gba_iter_times = []
-            out = self.dist_gba.solve(shard_ba_problem(prob, self.dist_gba.world),
-                                      ocfg.global_ba_iters, should_stop=lambda: self.stop_gba,
-                                      iter_times=self.gba_iter_times)
-        else:
-            out = self._solve_global_ba(upload_problem(prob, self.device), use_rcs)
-        if out is None:
-            outcome = "aborted"  # the loop that stopped it runs its own global BA
-        else:
+        with trace.span("gba.run"):
+            m = self.map
+            ocfg = self.cfg.optim
+            t_start = time.perf_counter()
             with m.lock:
-                if idx != self.full_ba_idx or self.stop_gba:
-                    outcome = "superseded"  # a newer loop correction owns the map now
+                kfs = np.nonzero(m.kf_valid)[0]
+                mp = np.nonzero(m.mp_valid)[0]
+                mp = mp[m.mp_obs_n[mp] > 0]
+                if len(kfs) < 3 or len(mp) < 32:
+                    return
+                n_obs = int(np.count_nonzero(m.mp_obs_kf[mp] >= 0))
+                C_pad, P_pad, O_pad = global_problem_shapes(len(kfs), len(mp), n_obs)
+                Qg = ocfg.global_ba_obs_per_point
+                use_dist = self.dist_gba is not None
+                use_rcs = not use_dist and C_pad <= 128
+                if use_dist:
+                    n_dev = self.dist_gba.world
+                    P_pad = ((P_pad + n_dev - 1) // n_dev) * n_dev
+                cam_free = kfs != 0
+                if use_rcs:
+                    prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad=None,
+                                                        Q_pad=Qg, obs_per_point_cap=Qg, pq_layout=True)
                 else:
-                    self._gba_writeback(kfs, cam_free, mp, *out)
-                    outcome = "written"
-        self.gba_runs.append({"idx": idx, "outcome": outcome, "seconds": time.perf_counter() - t_start})
+                    prob, _, _, _ = assemble_ba_problem(m, kfs, cam_free, mp, C_pad, P_pad, O_pad)
+            chunks: List[list] = []
+            if use_dist:
+                out = self.dist_gba.solve(shard_ba_problem(prob, self.dist_gba.world),
+                                          ocfg.global_ba_iters, should_stop=lambda: self.stop_gba,
+                                          chunks=chunks)
+                iters = sum(n for n, _ in chunks)
+            else:
+                out, iters = self._solve_global_ba(upload_problem(prob, self.device), use_rcs)
+            trace.count("gba.iters", iters)
+            if out is None:
+                outcome = "aborted"  # the loop that stopped it runs its own global BA
+            else:
+                with m.lock:
+                    if idx != self.full_ba_idx or self.stop_gba:
+                        outcome = "superseded"  # a newer loop correction owns the map now
+                    else:
+                        self._gba_writeback(kfs, cam_free, mp, *out)
+                        outcome = "written"
+            run = {"idx": idx, "outcome": outcome, "seconds": time.perf_counter() - t_start,
+                   "iters": iters}
+            if use_dist:
+                run["chunks"] = chunks
+            self.gba_runs.append(run)
 
     def _solve_global_ba(self, prob, use_rcs: bool):
         """global_ba_iters LM iterations in this process (the reduced system
         with `use_rcs`, else the flat solver), stop_gba checked before each.
-        Returns host (R, t, xw), or None when stopped."""
+        Returns (host (R, t, xw) or None when stopped, the iterations run)."""
         ocfg = self.cfg.optim
         R, t, xw = prob.R, prob.t, prob.xw
         lam = torch.tensor(ocfg.lm_lambda_init, dtype=torch.float32, device=self.device)
         active = prob.obs_valid.to(torch.float32)
-        n_iters = ocfg.global_ba_iters
         index = None if use_rcs else flat_index(prob)
-        t0 = time.perf_counter()
-        for _ in range(n_iters):
+        for i in range(ocfg.global_ba_iters):
             if self.stop_gba:
-                return None
+                return None, i
             if use_rcs:
                 R, t, xw, lam, _ = lm_chunk_pq(self.cam, prob, R, t, xw, lam, active, True, ocfg, 1)
             else:
                 R, t, xw, lam, _ = gba_iteration(self.cam, prob, index, R, t, xw, lam, active,
                                                  True, ocfg)
-        out = to_host(R, t, xw)
-        self.gba_iter_times = [(time.perf_counter() - t0) / n_iters] * n_iters
-        return out
+        return to_host(R, t, xw), ocfg.global_ba_iters
 
     def _gba_writeback(self, kfs, cam_free, mp, Rn, tn, xwn):
         """Write the global BA result into the map as it stands now:

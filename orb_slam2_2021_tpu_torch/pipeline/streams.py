@@ -25,6 +25,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from ..io import trace
+
 ROLES = ("lane", "mapping", "gba")
 
 
@@ -89,14 +91,17 @@ def pull_after(x: torch.Tensor, then=None):
     """x -> numpy, the device -> host copy enqueued before `then()` runs: on
     a card the copy goes to pinned memory, `then` enqueues its own work
     after it, and the host waits for the copy alone, not for `then`'s work.
-    Returns (array, then's result)."""
+    The host's wait is the `track.readback` span (io/trace.py). Returns
+    (array, then's result)."""
     if x.device.type != "cuda" or then is None:
         res = then() if then is not None else None
-        return x.cpu().numpy(), res
+        with trace.span("track.readback"):
+            return x.cpu().numpy(), res
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     host.copy_(x, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(x.device))
     res = then() if then is not None else None
-    done.synchronize()
+    with trace.span("track.readback"):
+        done.synchronize()
     return host.numpy(), res

@@ -23,7 +23,9 @@ stream before anything is read back.
 Localization mode tracks against the map without changing it. Maps save to
 and boot from a map file; trajectories export in the KITTI and TUM formats;
 `profile_dir` records a torch.profiler trace from the first frame to
-`shutdown`. `cfg.optim.use_cg_local_ba=False` selects the dense local BA.
+`shutdown`; `io/trace.py`, when started, records each frame's stages as
+spans (`frame`, `build`, `track`, the map lock's `lock.wait` and
+`lock.hold`, ...). `cfg.optim.use_cg_local_ba=False` selects the dense local BA.
 With `dist_gba` (a `parallel.gba_service.GbaClient`) the loop closer's
 global BA runs landmark-sharded over the client's process group, this
 process being its rank 0 (the reference's `mesh` and cross-process paths,
@@ -46,6 +48,7 @@ from ..config import SlamConfig
 from ..convert import desc_from_numpy
 from ..frontend.frame import Frame, build_mono_frame, build_rgbd_frame, build_stereo_frame_from_u8
 from ..gridmap.grid import GridMapper
+from ..io import trace
 from ..io.metrics import write_ndjson
 from ..io.persistence import load_map, save_map
 from ..io.trajectory import save_kitti, save_tum
@@ -104,7 +107,6 @@ class System:
         self.grid_mapper = GridMapper(cfg, self.map, self.device) if enable_mapping else None
         self.tracker.request_system_reset = self.reset
         self.frame_times: List[float] = []
-        self.lock_waits: List[float] = []  # seconds each frame waited for the map lock
         self.metrics: List[dict] = []  # per-frame records (io/metrics.py schema)
         self._frame_id = 0
         self._reset_requested = False
@@ -199,22 +201,28 @@ class System:
             stacked = stacked * 255.0
         return np.clip(stacked, 0, 255).astype(np.uint8)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the device: from pinned memory without blocking
-        the host, on the card."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def _upload(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        """A host array on the device (cast there to `dtype` if given): from
+        pinned memory without blocking the host, on the card."""
+        with trace.span("build.upload"):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            return t if dtype is None else t.to(dtype)
 
     def _build_stereo(self, pair: np.ndarray) -> Frame:
         return build_stereo_frame_from_u8(self._upload(pair), self.cfg)
+
+    def _prefetch_build(self, pair: np.ndarray) -> Frame:
+        """The frame build of a prefetched pair, outside any frame's own."""
+        with trace.span("build"):
+            return self._build_stereo(pair)
 
     def prefetch_stereo(self, image_left, image_right, normalized: Optional[bool] = None) -> Frame:
         """Upload a pair and enqueue its frame build ahead of the frame that
         will consume it; returns the frame handle for `track_stereo`."""
         with self._lane():
-            return self._build_stereo(self._pack_stereo_u8(image_left, image_right, normalized))
+            return self._prefetch_build(self._pack_stereo_u8(image_left, image_right, normalized))
 
     def track_stereo(self, image_left, image_right=None, timestamp: float = 0.0,
                      normalized: Optional[bool] = None):
@@ -222,14 +230,13 @@ class System:
         frame handle from `prefetch_stereo` as `image_left` (image_right
         None). Returns Tcw as (R, t) numpy arrays, or None while
         initializing / lost."""
-        with self._lane():
-            self._pre_frame()
-            t0 = time.perf_counter()
-            if isinstance(image_left, Frame):
-                frame = image_left
-            else:
-                frame = self._build_stereo(self._pack_stereo_u8(image_left, image_right, normalized))
-            return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
+        if isinstance(image_left, Frame):
+            def build():
+                return image_left
+        else:
+            def build():
+                return self._build_stereo(self._pack_stereo_u8(image_left, image_right, normalized))
+        return self._run_frame(build, self.tracker.track_stereo_frame, timestamp)
 
     def track_stereo_prefetch(self, frame: Frame, next_images, timestamp: float):
         """Track a prefetched `frame` and prefetch `next_images` (a pair, or
@@ -239,7 +246,7 @@ class System:
         with self._lane():
             payload = None if next_images is None else self._pack_stereo_u8(*next_images)
             if payload is not None:
-                self.tracker.prefetch_cb = lambda: self._build_stereo(payload)
+                self.tracker.prefetch_cb = lambda: self._prefetch_build(payload)
             self.tracker.prefetch_result = None
             try:
                 pose = self.track_stereo(frame, timestamp=timestamp)
@@ -249,7 +256,7 @@ class System:
             if handle is None and payload is not None:
                 # initialization, relocalization and the reference-keyframe
                 # path have no hook
-                handle = self._build_stereo(payload)
+                handle = self._prefetch_build(payload)
             return pose, handle
 
     def _upload_image(self, image) -> torch.Tensor:
@@ -258,47 +265,59 @@ class System:
         img = np.asarray(image)
         if img.dtype != np.uint8:
             img = img.astype(np.float32, copy=False)
-        return self._upload(img).to(torch.float32)
+        return self._upload(img, torch.float32)
 
     def track_rgbd(self, image, depth_map, timestamp: float = 0.0):
         """Per-frame RGB-D entry (System::TrackRGBD): a grey image and a
         depth map of the same size, in the config's DepthMapFactor units
         (uint16, as a TUM depth PNG holds it, or float). Returns Tcw as (R,
         t) numpy arrays, or None while lost."""
-        with self._lane():
-            self._pre_frame()
-            t0 = time.perf_counter()
+        def build():
             depth = self._upload(np.asarray(depth_map, np.float32))
-            frame = build_rgbd_frame(self._upload_image(image), depth, self.cfg, self._depth_scale)
-            return self._track(frame, self.tracker.track_stereo_frame, timestamp, t0)
+            return build_rgbd_frame(self._upload_image(image), depth, self.cfg, self._depth_scale)
+        return self._run_frame(build, self.tracker.track_stereo_frame, timestamp)
 
     def track_monocular(self, image, timestamp: float = 0.0):
         """Per-frame monocular entry (System::TrackMonocular). Returns Tcw
         as (R, t) numpy arrays (up to the map's scale), or None while
         initializing / lost."""
-        with self._lane():
-            self._pre_frame()
-            t0 = time.perf_counter()
-            frame = build_mono_frame(self._upload_image(image), self.cfg)
-            return self._track(frame, self.tracker.track_mono_frame, timestamp, t0)
+        def build():
+            return build_mono_frame(self._upload_image(image), self.cfg)
+        return self._run_frame(build, self.tracker.track_mono_frame, timestamp)
 
-    def _track(self, frame, track_fn, timestamp: float, t0: float):
-        """Track a built frame, run the mapping work it queued, and record
-        the frame's times and metrics."""
-        t1 = time.perf_counter()
-        with self.map.lock:
-            self.lock_waits.append(time.perf_counter() - t1)
-            pose = track_fn(frame, self._frame_id, timestamp)
-        t2 = time.perf_counter()
-        self._post_track()
-        t3 = time.perf_counter()
-        self.frame_times.append(t3 - t0)
-        self._collect_metrics(timestamp, t0, t1, t2, t3)
-        self._frame_id += 1
-        return pose
+    def _run_frame(self, build, track_fn, timestamp: float):
+        """One frame from a System entry to its return (the `frame` span):
+        `build()` (the `build` span), tracking under the map lock, the
+        mapping work it queued; then the frame's times and metrics, from
+        the same stamps as the spans (perf_counter ns)."""
+        with self._lane():
+            fr = trace.begin("frame", key=self._frame_id)
+            try:
+                self._pre_frame()
+                t0 = time.perf_counter_ns()
+                b = trace.begin("build", t0)
+                try:
+                    frame = build()
+                finally:
+                    t1 = time.perf_counter_ns()
+                    b.end(t1)
+                with self.map.lock, trace.span("track"):
+                    pose = track_fn(frame, self._frame_id, timestamp)
+                t2 = time.perf_counter_ns()
+                self._post_track()
+                t3 = time.perf_counter_ns()
+                fr.end(t3)
+            finally:
+                fr.end()
+            self.frame_times.append((t3 - t0) * 1e-9)
+            self._collect_metrics(timestamp, t0, t1, t2, t3)
+            self._frame_id += 1
+            return pose
 
     def _collect_metrics(self, timestamp, t0, t_extract, t_track, t_end):
-        """The tracker's per-frame record plus host-clock stage times (ms).
+        """The tracker's per-frame record plus host-clock stage times (ms)
+        from `_run_frame`'s stamps (ns): the `build` span, the map-lock wait
+        and the `track` span, the mapping work run inline, and the three.
         The frame build is enqueued asynchronously, so on a GPU ms_extract is
         its launch time and ms_track includes the wait for it."""
         rec = self.tracker.last_metrics
@@ -306,10 +325,10 @@ class System:
             return
         rec = dict(rec)
         rec["timestamp"] = float(timestamp)
-        rec["ms_extract"] = 1e3 * (t_extract - t0)
-        rec["ms_track"] = 1e3 * (t_track - t_extract)
-        rec["ms_mapping"] = 1e3 * (t_end - t_track)
-        rec["ms_total"] = 1e3 * (t_end - t0)
+        rec["ms_extract"] = 1e-6 * (t_extract - t0)
+        rec["ms_track"] = 1e-6 * (t_track - t_extract)
+        rec["ms_mapping"] = 1e-6 * (t_end - t_track)
+        rec["ms_total"] = 1e-6 * (t_end - t0)
         self.metrics.append(rec)
 
     def trajectory_kitti(self) -> List[np.ndarray]:

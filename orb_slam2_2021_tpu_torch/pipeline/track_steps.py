@@ -2,7 +2,9 @@
 orb_slam2_2021_tpu/pipeline/track_steps.py).
 
 Each step fuses a matcher pass with the motion-only LM pose solve. The steps
-read no value back to the host: a caller pulls their outputs once.
+read no value back to the host: a caller pulls their outputs once. The
+projection searches are the spans `track.motion_search` and
+`track.local_search` (io/trace.py); the pose solve records `track.pose_opt`.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 from ..frontend.features import Keypoints
 from ..frontend.matchers import match_bruteforce_desc, match_last_frame, match_local_points
 from ..geometry.camera import PinholeCamera
+from ..io import trace
 from ..optim.pose import PoseObs, pose_optimize
 
 
@@ -41,13 +44,14 @@ def motion_track_step(cam: PinholeCamera, kp: Keypoints, feat_ur, R_pred, t_pred
     """SearchByProjection(cur, last) + PoseOptimization. Returns (R, t,
     slot [N] last-frame slot per feature (-1), inlier [N], n_inliers,
     n_matched)."""
-    best_feat, accept, _ = match_last_frame(
-        cam, kp, feat_ur, R_pred, t_pred,
-        last_xw, last_desc, last_octave, last_angle, last_valid, cfg, radius,
-    )
-    slot = _scatter_slots(kp.capacity, best_feat, accept)
-    bound = slot >= 0
-    xw = last_xw[torch.clamp_min(slot, 0).long()]
+    with trace.span("track.motion_search"):
+        best_feat, accept, _ = match_last_frame(
+            cam, kp, feat_ur, R_pred, t_pred,
+            last_xw, last_desc, last_octave, last_angle, last_valid, cfg, radius,
+        )
+        slot = _scatter_slots(kp.capacity, best_feat, accept)
+        bound = slot >= 0
+        xw = last_xw[torch.clamp_min(slot, 0).long()]
     obs = _pose_obs_from_matches(kp, feat_ur, xw, bound, cfg)
     R, t, inlier, n_in = pose_optimize(cam, R_pred, t_pred, obs, cfg.optim)
     return R, t, slot, inlier, n_in, torch.sum(bound)
@@ -75,12 +79,13 @@ def local_track_step(cam: PinholeCamera, kp: Keypoints, feat_ur, R0, t0,
     """SearchLocalPoints + final PoseOptimization. Returns (R, t, new_slot
     [N] local-snapshot slot per feature (-1), inlier [N], n_inliers,
     visible [P])."""
-    best_feat, accept, _, visible = match_local_points(
-        cam, kp, feat_ur, bound_mask, R0, t0,
-        mp_pos, mp_normal, mp_min_dist, mp_max_dist, mp_desc, mp_valid, cfg, th,
-    )
-    slot = _scatter_slots(kp.capacity, best_feat, accept)
-    xw = torch.where(bound_mask[:, None], bound_xw, mp_pos[torch.clamp_min(slot, 0).long()])
+    with trace.span("track.local_search"):
+        best_feat, accept, _, visible = match_local_points(
+            cam, kp, feat_ur, bound_mask, R0, t0,
+            mp_pos, mp_normal, mp_min_dist, mp_max_dist, mp_desc, mp_valid, cfg, th,
+        )
+        slot = _scatter_slots(kp.capacity, best_feat, accept)
+        xw = torch.where(bound_mask[:, None], bound_xw, mp_pos[torch.clamp_min(slot, 0).long()])
     obs = _pose_obs_from_matches(kp, feat_ur, xw, bound_mask | (slot >= 0), cfg)
     R, t, inlier, n_in = pose_optimize(cam, R0, t0, obs, cfg.optim)
     return R, t, slot, inlier, n_in, visible

@@ -27,6 +27,14 @@ Monocular initialization matches a reference frame against a later one,
 bootstraps the two-view geometry (`solvers/two_view.py`) over minimal sets
 drawn by `init_sampler`, and seeds the map with two keyframes at unit
 median depth.
+
+Spans (io/trace.py) under System's `track`: `track.select_local_kfs`,
+`track.snapshot`, `track.fused_step` (with `track.motion_search`,
+`track.pose_opt` per LM round and `track.local_search` in the device steps),
+`track.readback` (the host's waits for device results), `track.bind` (the
+bookkeeping after the fused or local-map readback), `track.kf_decision`,
+`track.kf_create` (keyed by the new keyframe's id), and one span for each
+other path: `track.init`, `track.ref_kf`, `track.reloc`, `track.local_map`.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from ..config import SlamConfig
 from ..convert import camera_from_config, desc_from_numpy, desc_to_numpy, tensor, to_host
 from ..frontend.frame import Frame
 from ..frontend.matchers import match_bruteforce_desc
+from ..io import trace
 from ..mapping.map_store import MapStore
 from ..solvers.epnp import MIN_SAMPLE, epnp_ransac
 from ..solvers.horn_sim3 import sample_indices
@@ -60,6 +69,12 @@ def reloc_samples(valid, m: int, n_hyps: int, seed: int):
     a host generator seeded per candidate, as the reference seeds its key
     with kc + 17."""
     return sample_indices(valid, m, n_hyps, torch.Generator().manual_seed(seed))
+
+
+def _pull(*tensors):
+    """`to_host` inside the `track.readback` span."""
+    with trace.span("track.readback"):
+        return to_host(*tensors)
 
 
 def init_samples(valid, frame_id: int):
@@ -162,7 +177,8 @@ class Tracking:
         while not initialized / lost."""
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
             n_kf0 = self.map.n_kf
-            ok = self._stereo_initialize(frame, frame_id, timestamp)
+            with trace.span("track.init"):
+                ok = self._stereo_initialize(frame, frame_id, timestamp)
             self.state = TrackState.OK if ok else TrackState.NOT_INITIALIZED
             self._set_metrics(frame_id, timestamp, self.map.n_kf > n_kf0)
             return self.last_pose if ok else None
@@ -258,8 +274,12 @@ class Tracking:
         if ok:
             self.state = TrackState.OK
             self._update_motion_model()
-            if not self.only_tracking and self._need_new_keyframe(frame, frame_id):
-                self._create_new_keyframe(frame, frame_id, timestamp)
+            if not self.only_tracking:
+                with trace.span("track.kf_decision"):
+                    need = self._need_new_keyframe(frame, frame_id)
+                if need:
+                    with trace.span("track.kf_create", key=self.map.next_kf):
+                        self._create_new_keyframe(frame, frame_id, timestamp)
         else:
             self.state = TrackState.LOST
             self.velocity = None
@@ -308,7 +328,7 @@ class Tracking:
             nn_ratio=0.9, th=50)
         p2 = frame.kp.xy[best_b.long()]
         accept = accept & ((p2 - ref.kp.xy).abs().amax(dim=1) < 100.0)
-        accept_h, best_b = to_host(accept, best_b)
+        accept_h, best_b = _pull(accept, best_b)
         if accept_h.sum() < 100:
             self._mono_ref = None
             return False
@@ -316,7 +336,7 @@ class Tracking:
         idx = self.init_sampler(accept_h, frame_id).to(self.device)
         c = self.cfg
         res = two_view_init(idx, p1, p2, accept, c.fx, c.fy, c.cx, c.cy)
-        ok, good, R2, t2, pts = to_host(res.ok, res.good, res.R, res.t, res.points)
+        ok, good, R2, t2, pts = _pull(res.ok, res.good, res.R, res.t, res.points)
         if not bool(ok) or good.sum() < 80:
             return False
         med = float(np.median(pts[good][:, 2]))
@@ -377,23 +397,24 @@ class Tracking:
         x = (xy[good, 0] - self.cfg.cx) * z / self.cfg.fx
         y = (xy[good, 1] - self.cfg.cy) * z / self.cfg.fy
         pos = np.stack([x, y, z], axis=1).astype(np.float32)
-        ids = self.map.add_map_points_batch(pos, desc[good], first_kf=0)
-        mp_bind = np.full(frame.n, -1, np.int64)
-        mp_bind[np.nonzero(good)[0]] = ids
-        k = self.map.add_keyframe(
-            R, t, xy, host["ur"], depth, host["octave"], host["angle"],
-            desc, kp_valid, mp_bind, frame_id, timestamp,
-        )
-        self.map.update_point_stats(ids)
-        self.ref_kf = k
-        self.last_kf_frame_id = frame_id
-        self.last_pose = (R, t)
-        self.velocity = None
-        self._bind_cur = mp_bind
-        self._record_frame(frame_id, timestamp, lost=False)
-        self._stash_last_frame(frame, frame_id)
-        if self.local_mapper is not None:
-            self.local_mapper.insert_keyframe(k, host["words"], frame)
+        with trace.span("track.kf_create", key=self.map.next_kf):
+            ids = self.map.add_map_points_batch(pos, desc[good], first_kf=0)
+            mp_bind = np.full(frame.n, -1, np.int64)
+            mp_bind[np.nonzero(good)[0]] = ids
+            k = self.map.add_keyframe(
+                R, t, xy, host["ur"], depth, host["octave"], host["angle"],
+                desc, kp_valid, mp_bind, frame_id, timestamp,
+            )
+            self.map.update_point_stats(ids)
+            self.ref_kf = k
+            self.last_kf_frame_id = frame_id
+            self.last_pose = (R, t)
+            self.velocity = None
+            self._bind_cur = mp_bind
+            self._record_frame(frame_id, timestamp, lost=False)
+            self._stash_last_frame(frame, frame_id)
+            if self.local_mapper is not None:
+                self.local_mapper.insert_keyframe(k, host["words"], frame)
         return True
 
     VO_ID = -2  # id of a temporal visual-odometry point
@@ -442,7 +463,7 @@ class Tracking:
         out = motion_track_step(
             self.cam, frame.kp, frame.u_right, self._dev(R_pred), self._dev(t_pred),
             self._dev(xw), lkp.desc, lkp.octave, lkp.angle, self._dev(valid), radius, self.cfg)
-        R, t, slot, inlier, n_in, n_matched = to_host(*out)
+        R, t, slot, inlier, n_in, n_matched = _pull(*out)
         return ids, R, t, slot, inlier, int(n_in), int(n_matched)
 
     def _track_motion_model(self, frame: Frame) -> bool:
@@ -477,30 +498,32 @@ class Tracking:
         """TrackReferenceKeyFrame: window-free descriptor matching against the
         reference keyframe's landmarks, then pose optimization from the last
         pose."""
-        if self.ref_kf < 0 or self.last_pose is None:
-            return False
-        k = self.ref_kf
-        mp = self.map.kf_mp[k]
-        valid = (mp >= 0) & self.map.mp_valid[np.clip(mp, 0, None)]
-        if valid.sum() < 15:
-            return False
-        ids = np.where(valid, mp, -1)
-        xw = self.map.mp_pos[np.clip(mp, 0, None)]
-        R_l, t_l = self.last_pose
-        R, t, slot, inlier, n_in, n_matched = bow_track_step(
-            self.cam, frame.kp, frame.u_right,
-            self._dev(R_l), self._dev(t_l), self._dev(xw),
-            desc_from_numpy(self.map.kf_desc[k], self.device),
-            self._dev(self.map.kf_angle[k]), self._dev(valid), self.cfg,
-        )
-        R, t, slot, inlier, n_in, n_matched = (
-            x.cpu().numpy() for x in (R, t, slot, inlier, n_in, n_matched)
-        )
-        if int(n_matched) < 15 or int(n_in) < self.cfg.tracking.min_inliers_track:
-            return False
-        self._apply_matches(ids, slot, inlier)
-        self.last_pose = (R, t)
-        return True
+        with trace.span("track.ref_kf"):
+            if self.ref_kf < 0 or self.last_pose is None:
+                return False
+            k = self.ref_kf
+            mp = self.map.kf_mp[k]
+            valid = (mp >= 0) & self.map.mp_valid[np.clip(mp, 0, None)]
+            if valid.sum() < 15:
+                return False
+            ids = np.where(valid, mp, -1)
+            xw = self.map.mp_pos[np.clip(mp, 0, None)]
+            R_l, t_l = self.last_pose
+            R, t, slot, inlier, n_in, n_matched = bow_track_step(
+                self.cam, frame.kp, frame.u_right,
+                self._dev(R_l), self._dev(t_l), self._dev(xw),
+                desc_from_numpy(self.map.kf_desc[k], self.device),
+                self._dev(self.map.kf_angle[k]), self._dev(valid), self.cfg,
+            )
+            with trace.span("track.readback"):
+                R, t, slot, inlier, n_in, n_matched = (
+                    x.cpu().numpy() for x in (R, t, slot, inlier, n_in, n_matched)
+                )
+            if int(n_matched) < 15 or int(n_in) < self.cfg.tracking.min_inliers_track:
+                return False
+            self._apply_matches(ids, slot, inlier)
+            self.last_pose = (R, t)
+            return True
 
     def _feature_scale(self) -> float:
         """Inlier thresholds assume nFeatures=2000; scale them down for
@@ -510,9 +533,10 @@ class Tracking:
     def _relocalize(self, frame: Frame, frame_id: int) -> bool:
         """Relocalization: keyframe-database candidates first, then the
         reference-keyframe search."""
-        if self.place is not None and self._relocalize_bow(frame, frame_id):
-            return True
-        return self._track_reference_kf(frame)
+        with trace.span("track.reloc"):
+            if self.place is not None and self._relocalize_bow(frame, frame_id):
+                return True
+            return self._track_reference_kf(frame)
 
     def _relocalize_bow(self, frame: Frame, frame_id: int) -> bool:
         """Per candidate (the first five): descriptor matching, EPnP RANSAC
@@ -541,7 +565,7 @@ class Tracking:
             kf_angle = self._dev(self.map.kf_angle[kc])
             best_b, accept, _ = match_bruteforce_desc(
                 frame.kp.desc, frame.kp.valid, frame.kp.angle, kf_desc, kf_ok, kf_angle)
-            accept, best_b = to_host(accept, best_b)
+            accept, best_b = _pull(accept, best_b)
             if accept.sum() < 15:
                 continue
             fidx = np.nonzero(accept)[0]
@@ -556,7 +580,7 @@ class Tracking:
             idx = self.reloc_sampler(valid, MIN_SAMPLE, PNP_HYPS, kc + 17).to(dev)
             R, t, _, n_in = epnp_ransac(idx, self._dev(xw), self._dev(uv), self._dev(s2),
                                         self._dev(valid), c.fx, c.fy, c.cx, c.cy)
-            R, t, n_in = to_host(R, t, n_in)
+            R, t, n_in = _pull(R, t, n_in)
             if int(n_in) < 10:
                 continue
             ids = np.where(feat_ok, mp, -1)
@@ -569,7 +593,7 @@ class Tracking:
                 Rn, tn, slot, inlier, n_opt, _ = motion_track_step(
                     self.cam, frame.kp, frame.u_right, self._dev(R_c), self._dev(t_c),
                     *lm, radius, c)
-                Rn, tn, slot, inlier, n_opt = to_host(Rn, tn, slot, inlier, n_opt)
+                Rn, tn, slot, inlier, n_opt = _pull(Rn, tn, slot, inlier, n_opt)
                 return Rn, tn, slot, inlier, int(n_opt)
 
             Rn, tn, slot, inlier, n_good = refine(R, t, r0)
@@ -609,7 +633,9 @@ class Tracking:
         parts = [f.view(torch.int32), desc]
         if self.place is not None:
             parts.append(self.place.transform(frame.kp.desc, frame.kp.valid)[:, None])
-        pulled = torch.cat(parts, dim=1).cpu().numpy()
+        packed = torch.cat(parts, dim=1)
+        with trace.span("track.readback"):
+            pulled = packed.cpu().numpy()
         f = pulled[:, :8].view(np.float32)
         host = {
             "xy": np.ascontiguousarray(f[:, :2]),
@@ -629,47 +655,49 @@ class Tracking:
         """UpdateLocalKeyFrames: keyframes voting for the current matches,
         padded with their best covisibles. Returns (reference_kf,
         local_kf_list) or None."""
-        obs_kf = self.map.mp_obs_kf[matched_ids].reshape(-1)
-        obs_kf = obs_kf[obs_kf >= 0]
-        if len(obs_kf) == 0:
-            return None
-        votes = np.bincount(obs_kf, minlength=self.map.kf_capacity)
-        voters = np.nonzero(votes)[0]
-        order = voters[np.argsort(-votes[voters], kind="stable")]
-        local_kfs = list(order[: self.cfg.tracking.local_window_kf // 2])
-        for k in list(local_kfs):
-            for nb in self.map.covisible_keyframes(int(k), 10):
-                if len(local_kfs) >= self.cfg.tracking.local_window_kf:
-                    break
-                if nb not in local_kfs:
-                    local_kfs.append(int(nb))
-        return int(order[0]), local_kfs
+        with trace.span("track.select_local_kfs"):
+            obs_kf = self.map.mp_obs_kf[matched_ids].reshape(-1)
+            obs_kf = obs_kf[obs_kf >= 0]
+            if len(obs_kf) == 0:
+                return None
+            votes = np.bincount(obs_kf, minlength=self.map.kf_capacity)
+            voters = np.nonzero(votes)[0]
+            order = voters[np.argsort(-votes[voters], kind="stable")]
+            local_kfs = list(order[: self.cfg.tracking.local_window_kf // 2])
+            for k in list(local_kfs):
+                for nb in self.map.covisible_keyframes(int(k), 10):
+                    if len(local_kfs) >= self.cfg.tracking.local_window_kf:
+                        break
+                    if nb not in local_kfs:
+                        local_kfs.append(int(nb))
+            return int(order[0]), local_kfs
 
     def _refresh_snapshot(self, local_kfs) -> bool:
         """Upload the local-map snapshot when the local keyframe set or the
         map content (write epoch) changed. Returns True when rebuilt."""
-        key = (tuple(int(x) for x in local_kfs), self.map.write_epoch)
-        if key == self._snap_key:
-            return False
-        P = self.cfg.tracking.local_points_cap
-        snap = self.map.local_map_snapshot(np.asarray(local_kfs, np.int64), P)
-        geom = np.concatenate(
-            [snap["pos"], snap["normal"], snap["min_dist"][:, None], snap["max_dist"][:, None]],
-            axis=1,
-        ).astype(np.float32)
-        self._snap_dev = (
-            self._dev(geom), desc_from_numpy(snap["desc"], self.device), self._dev(snap["valid"])
-        )
-        self._snap_ids = snap["ids"]
-        cap = len(self.map.mp_valid)
-        if self._id2slot is None or len(self._id2slot) != cap:
-            self._id2slot = np.full(cap, -1, np.int32)
-        else:
-            self._id2slot[:] = -1
-        live = snap["ids"] >= 0
-        self._id2slot[snap["ids"][live]] = np.arange(P, dtype=np.int32)[live]
-        self._snap_key = key
-        return True
+        with trace.span("track.snapshot"):
+            key = (tuple(int(x) for x in local_kfs), self.map.write_epoch)
+            if key == self._snap_key:
+                return False
+            P = self.cfg.tracking.local_points_cap
+            snap = self.map.local_map_snapshot(np.asarray(local_kfs, np.int64), P)
+            geom = np.concatenate(
+                [snap["pos"], snap["normal"], snap["min_dist"][:, None], snap["max_dist"][:, None]],
+                axis=1,
+            ).astype(np.float32)
+            self._snap_dev = (
+                self._dev(geom), desc_from_numpy(snap["desc"], self.device), self._dev(snap["valid"])
+            )
+            self._snap_ids = snap["ids"]
+            cap = len(self.map.mp_valid)
+            if self._id2slot is None or len(self._id2slot) != cap:
+                self._id2slot = np.full(cap, -1, np.int32)
+            else:
+                self._id2slot[:] = -1
+            live = snap["ids"] >= 0
+            self._id2slot[snap["ids"][live]] = np.arange(P, dtype=np.int32)[live]
+            self._snap_key = key
+            return True
 
     def _track_fused(self, frame: Frame, frame_id: int):
         """TrackWithMotionModel + TrackLocalMap in one device step with one
@@ -690,28 +718,30 @@ class Tracking:
         ref_kf, local_kfs = sel_res
         self._refresh_snapshot(local_kfs)
 
-        geom = np.empty((n, 4), np.float32)
-        geom[:, :3] = self.map.mp_pos[np.clip(live, 0, None)]
-        geom[:, 3] = alive
-        last_slot = np.where(lm_ids >= 0, self._id2slot[np.clip(lm_ids, 0, None)], -1)
-        R_l, t_l = self.last_pose
-        T_pred = self.velocity @ _mat(R_l, t_l)
-        pose_pack = np.zeros(16, np.float32)
-        pose_pack[:9] = T_pred[:3, :3].reshape(-1)
-        pose_pack[9:12] = T_pred[:3, 3]
-        pose_pack[12] = self.cfg.tracking.motion_search_radius
-        pose_pack[13] = self.cfg.resolved_depth_th()
-        pose_pack[14] = 20.0
+        with trace.span("track.fused_step"):
+            geom = np.empty((n, 4), np.float32)
+            geom[:, :3] = self.map.mp_pos[np.clip(live, 0, None)]
+            geom[:, 3] = alive
+            last_slot = np.where(lm_ids >= 0, self._id2slot[np.clip(lm_ids, 0, None)], -1)
+            R_l, t_l = self.last_pose
+            T_pred = self.velocity @ _mat(R_l, t_l)
+            pose_pack = np.zeros(16, np.float32)
+            pose_pack[:9] = T_pred[:3, :3].reshape(-1)
+            pose_pack[9:12] = T_pred[:3, 3]
+            pose_pack[12] = self.cfg.tracking.motion_search_radius
+            pose_pack[13] = self.cfg.resolved_depth_th()
+            pose_pack[14] = 20.0
 
-        out_f, out_i = fused_track_step(
-            self.cam, frame.kp, frame.u_right, frame.depth,
-            lf.kp.desc, lf.kp.octave, lf.kp.angle, lf.kp.valid,
-            self._dev(geom), self._dev(last_slot, torch.int32), self._dev(pose_pack),
-            *self._snap_dev, self.cfg,
-        )
+            out_f, out_i = fused_track_step(
+                self.cam, frame.kp, frame.u_right, frame.depth,
+                lf.kp.desc, lf.kp.octave, lf.kp.angle, lf.kp.valid,
+                self._dev(geom), self._dev(last_slot, torch.int32), self._dev(pose_pack),
+                *self._snap_dev, self.cfg,
+            )
         # the frame's one device -> host copy: out_f bits | enc | visible; a
         # prefetch hook (System.track_stereo_prefetch) enqueues the next
         # frame's upload and build behind the copy, before the host waits
+        # (pull_after's wait is the `track.readback` span)
         cb, self.prefetch_cb = self.prefetch_cb, None
         out, built = pull_after(torch.cat([out_f.view(torch.int32), out_i]), cb)
         if cb is not None:
@@ -721,20 +751,21 @@ class Tracking:
         if nm1 < 20 or nin1 < self.cfg.tracking.min_inliers_track:
             return None
 
-        enc = out[30:30 + n]
-        visible = out[30 + n:] > 0
-        snap_ids = self._snap_ids
-        bind = np.full(n, -1, np.int64)
-        m1 = (enc >= 0) & (enc < n)
-        bind[m1] = lm_ids[enc[m1]]
-        m2 = enc >= n
-        bind[m2] = snap_ids[enc[m2] - n]
-        self._bind_cur = bind
-        self.ref_kf = ref_kf
-        self.map.increment_visible(snap_ids[visible & (snap_ids >= 0)])
-        self.map.increment_found(bind[bind >= 0])
-        self.n_inliers_last = nin2
-        self._kf_close_counts = (int(f[15]), int(f[16]))
+        with trace.span("track.bind"):
+            enc = out[30:30 + n]
+            visible = out[30 + n:] > 0
+            snap_ids = self._snap_ids
+            bind = np.full(n, -1, np.int64)
+            m1 = (enc >= 0) & (enc < n)
+            bind[m1] = lm_ids[enc[m1]]
+            m2 = enc >= n
+            bind[m2] = snap_ids[enc[m2] - n]
+            self._bind_cur = bind
+            self.ref_kf = ref_kf
+            self.map.increment_visible(snap_ids[visible & (snap_ids >= 0)])
+            self.map.increment_found(bind[bind >= 0])
+            self.n_inliers_last = nin2
+            self._kf_close_counts = (int(f[15]), int(f[16]))
 
         min_in = self._min_inliers_localmap(frame_id)
         if nin2 < min_in:
@@ -756,48 +787,52 @@ class Tracking:
     def _track_local_map(self, frame: Frame, frame_id: int) -> bool:
         """TrackLocalMap after a reference-KF track: match the local map's
         points, re-optimize, count inliers."""
-        bind = self._bind_cur
-        matched_ids = bind[bind >= 0]
-        if len(matched_ids) == 0:
-            return False
-        sel_res = self._select_local_kfs(matched_ids)
-        if sel_res is None:
-            return False
-        self.ref_kf, local_kfs = sel_res
-        snap = self.map.local_map_snapshot(
-            np.asarray(local_kfs, np.int64), self.cfg.tracking.local_points_cap
-        )
-        already = np.isin(snap["ids"], matched_ids)
-        snap_valid = snap["valid"] & ~already
-        R0, t0 = self.last_pose
-        bound_mask = bind >= 0
-        live = self.map.resolve_replaced(bind)
-        bound_xw = self.map.mp_pos[np.clip(live, 0, None)]
+        with trace.span("track.local_map"):
+            bind = self._bind_cur
+            matched_ids = bind[bind >= 0]
+            if len(matched_ids) == 0:
+                return False
+            sel_res = self._select_local_kfs(matched_ids)
+            if sel_res is None:
+                return False
+            self.ref_kf, local_kfs = sel_res
+            with trace.span("track.snapshot"):
+                snap = self.map.local_map_snapshot(
+                    np.asarray(local_kfs, np.int64), self.cfg.tracking.local_points_cap
+                )
+            already = np.isin(snap["ids"], matched_ids)
+            snap_valid = snap["valid"] & ~already
+            R0, t0 = self.last_pose
+            bound_mask = bind >= 0
+            live = self.map.resolve_replaced(bind)
+            bound_xw = self.map.mp_pos[np.clip(live, 0, None)]
 
-        R, t, slot, inlier, n_in, visible = local_track_step(
-            self.cam, frame.kp, frame.u_right, self._dev(R0), self._dev(t0),
-            self._dev(bound_xw), self._dev(bound_mask),
-            self._dev(snap["pos"]), self._dev(snap["normal"]),
-            self._dev(snap["min_dist"]), self._dev(snap["max_dist"]),
-            desc_from_numpy(snap["desc"], self.device), self._dev(snap_valid), self.cfg,
-        )
-        R, t, slot, inlier, n_in, visible = (
-            x.cpu().numpy() for x in (R, t, slot, inlier, n_in, visible)
-        )
-        n_in = int(n_in)
-        new_ok = (slot >= 0) & inlier
-        bind = bind.copy()
-        bind[new_ok] = snap["ids"][slot[new_ok]]
-        bind[~inlier & (bind >= 0) & ~bound_mask] = -1
-        bind[~inlier & bound_mask] = -1
-        self._bind_cur = bind
-        self.map.increment_visible(snap["ids"][visible & (snap["ids"] >= 0)])
-        self.map.increment_found(bind[bind >= 0])
-        self.n_inliers_last = n_in
-        if n_in < self._min_inliers_localmap(frame_id):
-            return False
-        self.last_pose = (R, t)
-        return True
+            R, t, slot, inlier, n_in, visible = local_track_step(
+                self.cam, frame.kp, frame.u_right, self._dev(R0), self._dev(t0),
+                self._dev(bound_xw), self._dev(bound_mask),
+                self._dev(snap["pos"]), self._dev(snap["normal"]),
+                self._dev(snap["min_dist"]), self._dev(snap["max_dist"]),
+                desc_from_numpy(snap["desc"], self.device), self._dev(snap_valid), self.cfg,
+            )
+            with trace.span("track.readback"):
+                R, t, slot, inlier, n_in, visible = (
+                    x.cpu().numpy() for x in (R, t, slot, inlier, n_in, visible)
+                )
+            with trace.span("track.bind"):
+                n_in = int(n_in)
+                new_ok = (slot >= 0) & inlier
+                bind = bind.copy()
+                bind[new_ok] = snap["ids"][slot[new_ok]]
+                bind[~inlier & (bind >= 0) & ~bound_mask] = -1
+                bind[~inlier & bound_mask] = -1
+                self._bind_cur = bind
+                self.map.increment_visible(snap["ids"][visible & (snap["ids"] >= 0)])
+                self.map.increment_found(bind[bind >= 0])
+                self.n_inliers_last = n_in
+            if n_in < self._min_inliers_localmap(frame_id):
+                return False
+            self.last_pose = (R, t)
+            return True
 
     # ------------------------------------------------------------------
     def _update_motion_model(self):

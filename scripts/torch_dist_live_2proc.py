@@ -95,7 +95,7 @@ def drive(sys_, frames_file):
     return {
         "n_ok": n_ok, "n_frames": len(frames), "n_kf": int(sys_.map.n_kf),
         "ate": float(ate_rmse(est, mats[: len(est)])), "length": length,
-        "loops": loops, "gba_runs": lc.gba_runs, "gba_iter_ms": [1e3 * s for s in lc.gba_iter_times],
+        "loops": loops, "gba_runs": lc.gba_runs, "gba_iter_ms": [1e3 * s / n for r in lc.gba_runs for n, s in r.get("chunks", ())],
         "ms_median": float(1e3 * np.median(sys_.frame_times)),
         "hamming_best2_launches": HAMMING_BEST2_KERNEL.launches,
         "hamming_matrix_launches": HAMMING_KERNEL.launches,

@@ -658,3 +658,45 @@ def test_vocab_tree_on_cuda_matches_cpu(cuda_device):
     cpu = train_vocabulary(words, k=10, L=4, seed=3, device="cpu", stats=cpu_stats)
     assert np.array_equal(card.node_desc, cpu.node_desc) and np.array_equal(card.word_idf, cpu.word_idf)
     assert [r["passes"] for r in card_stats["levels"]] == [r["passes"] for r in cpu_stats["levels"]]
+
+
+def test_recorder_spans_hold_their_launches_on_the_profiler_clock(cuda_device):
+    """Known launches inside io/trace.py spans, each span 1 ms of host time
+    on either side of its launches and 2 ms from the next, under
+    torch.profiler (CUDA activity): every launch's runtime event, on the
+    recorder's converted clock, falls inside the span that made it."""
+    import threading
+    import time
+
+    from orb_slam2_2021_tpu_torch.io import trace
+
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+    x = torch.ones(4096, device=cuda_device)
+    x.add_(1)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    trace.stop()
+    trace.start()
+    try:
+        for i in range(8):
+            time.sleep(0.002)
+            with trace.span("launches", key=i):
+                time.sleep(0.001)
+                for _ in range(i + 1):
+                    x.add_(1)
+                time.sleep(0.001)
+    finally:
+        rec = trace.stop()
+        torch.cuda.synchronize()
+        prof.stop()
+    low = threading.get_ident() & 0xFFFFFFFF
+    mine = {threading.get_native_id(), low - (1 << 32) if low >= 1 << 31 else low}
+    launches = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                      if e.name() in launch_calls and e.device_resource_id() in mine)
+    spans = sorted((rec.to_profiler_ns(s.t0), rec.to_profiler_ns(s.t1), s.key) for s in rec.named("launches"))
+    assert len(spans) == 8 and len(launches) == sum(range(1, 9))
+    assert rec.offset_err_ns < 100_000, rec.offset_err_ns
+    for a, b, k in spans:
+        assert sum(a <= t < b for t in launches) == k + 1, (k, a, b)
+    assert all(any(a <= t < b for a, b, _ in spans) for t in launches)

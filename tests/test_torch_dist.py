@@ -254,7 +254,8 @@ def test_run_global_ba_through_a_group_of_one(group_of_one, tmp_path):
     t_before = mt.kf_t[:6].copy()
     tlc._run_global_ba()
     assert [g["outcome"] for g in tlc.gba_runs] == ["written"]
-    assert len(tlc.gba_iter_times) == len(jlc.gba_iter_times) == cfg.optim.global_ba_iters
+    assert tlc.gba_runs[-1]["iters"] == len(jlc.gba_iter_times) == cfg.optim.global_ba_iters
+    assert sum(n for n, _ in tlc.gba_runs[-1]["chunks"]) == cfg.optim.global_ba_iters
     assert np.abs(mt.kf_R[:6] - mj.kf_R[:6]).max() < 1e-5
     assert np.abs(mt.kf_t[:6] - mj.kf_t[:6]).max() < 1e-4
     ids = np.nonzero(mj.mp_valid)[0]

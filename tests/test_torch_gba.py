@@ -148,7 +148,7 @@ def test_run_global_ba_on_identical_maps(monkeypatch, path):
     t_before = mt.kf_t[:6].copy()
     jlc._run_global_ba(idx=jlc.full_ba_idx)
     tlc._run_global_ba()
-    assert len(tlc.gba_iter_times) == len(jlc.gba_iter_times) == cfg.optim.global_ba_iters
+    assert tlc.gba_runs[-1]["iters"] == len(jlc.gba_iter_times) == cfg.optim.global_ba_iters
     assert np.abs(mt.kf_R[:6] - mj.kf_R[:6]).max() < 1e-5
     assert np.abs(mt.kf_t[:6] - mj.kf_t[:6]).max() < 1e-4
     ids = np.nonzero(mj.mp_valid)[0]

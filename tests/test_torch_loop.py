@@ -137,7 +137,8 @@ def _drive_port(n):
     rec["traj"] = s.trajectory_kitti()
     rec["kf_frame_id"] = s.map.kf_frame_id[: s.map.next_kf].copy()
     rec["loop_edges"] = {k: set(v) for k, v in s.map.loop_edges.items()}
-    rec["gba_iters"] = len(s.loop_closer.gba_iter_times)
+    runs = s.loop_closer.gba_runs
+    rec["gba_iters"] = runs[-1]["iters"] if runs else 0
     rec["occupied"] = int((s.occupancy_grid().data == 100).sum())
     return rec
 
@@ -285,6 +286,6 @@ def test_correct_loop_from_checkpoint(drives):
     mps = np.nonzero(mj.mp_valid)[0]
     dp = np.abs(mt.mp_pos[mps] - mj.mp_pos[mps]).max()
     assert dp < 0.02, f"map points differ by {dp:.4f} m (tolerance 2 cm)"
-    assert tlc.n_loops == jlc.n_loops == 1 and len(tlc.gba_iter_times) == 10
+    assert tlc.n_loops == jlc.n_loops == 1 and tlc.gba_runs[-1]["iters"] == len(jlc.gba_iter_times) == 10
     assert mt.mp_pos.dtype == mj.mp_pos.dtype == np.float32
     assert mt.kf_R.dtype == mj.kf_R.dtype == np.float32

@@ -84,11 +84,11 @@ def main(rank: int, world: int, rendezvous: str, inp: str, out_dir: str):
             checks.append(len(checks))
             return len(checks) > 1
 
-        times = []
-        stopped = client.solve(flat, 4, should_stop=stop_at_chunk_1, iter_times=times)
+        chunks = []
+        stopped = client.solve(flat, 4, should_stop=stop_at_chunk_1, chunks=chunks)
         client.shutdown()
         out.update(svc_R=R, svc_t=t, svc_xw=xw, svc_stopped=np.array(stopped is None),
-                   svc_stop_iters=np.array(len(times)))
+                   svc_stop_iters=np.array(sum(n for n, _ in chunks)))
     else:
         out.update(svc_solved=np.array(gba_service.GbaServer(group, gcfg, cam, work, dev).serve_forever()))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
