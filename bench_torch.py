@@ -232,9 +232,11 @@ def main():
     from orb_slam2_2021_tpu_torch.pipeline.system import System
 
     if torch.device(args.device).type == "cuda":
+        from orb_slam2_2021_tpu_torch.ops.cuda_build import build_all
         from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
+        from orb_slam2_2021_tpu_torch.optim.pose import POSE_KERNEL
 
-        HAMMING_BEST2_KERNEL.build()  # nvcc before the timed region
+        build_all([HAMMING_BEST2_KERNEL, POSE_KERNEL])  # nvcc before the timed region
     _stage("frontend microloop")
     frontend = frontend_extra(cfg, args.device, LEAN)
     _stage("headline drive")

@@ -144,12 +144,19 @@ Phases (any failure exits nonzero before the result lines are printed):
      held on adversarial inputs (tie-forcing, binade-crossing, zero-run,
      power-of-two-sum and zero-sum nodes, nodes just over the chain's
      2,048 rows, uniforms on the cdf's own values; nodes ending inside a
-     k-word, group or chunk, empty clusters, rows in no cluster).
+     k-word, group or chunk, empty clusters, rows in no cluster);
+ 28. the motion-only pose solve (csrc/pose.cu) against its plain version on
+     the card: N = 2,000 stereo with gross outliers and monocular rows,
+     N = 1,000 RGB-D, N = 1, N = 1,337, all rows invalid, all valid and
+     N = 4,096 (identical inlier flags, R within 1e-5 and t within 1e-4 m,
+     two launches bit for bit, one counted launch a solve, the plain
+     version's launches a solve by the profiler); device ms and host ms
+     a solve of both at the lane's two shapes beside the bound.
 
 The run's order differs from the numbering: phase 22 runs in processes of
 its own while the main process holds the CUDA-vs-CPU checks of phases 4,
 7, 10 and 14 and the CPU halves of phases 23, 24, 26 and 27 (which report
-no card times), after phase 21 and the card checks of phases 23 to 27; phase 24's
+no card times), after phase 21 and the card checks of phases 23 to 28; phase 24's
 viewer runs on the drives of phases 8 and 17; phase 18 runs last.
 Nothing of the JAX package is imported. The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -3329,6 +3336,148 @@ def check_vocab_cpu(card):
         raise AssertionError("the card's vocabulary differs from the CPU path's")
 
 
+# phase 28: the motion-only pose solve (csrc/pose.cu) on the cases below
+POSE_CASES = ("stereo_2000", "rgbd_1000", "one", "ragged_1337", "all_invalid", "all_valid",
+              "max_4096")
+POSE_R_TOL, POSE_T_TOL = 1e-5, 1e-4  # kernel vs plain: R entries, m (the port-vs-JAX test's)
+POSE_TRUE = (0.1, -0.05, 0.2, 0.01, 0.02, -0.015)  # the true pose's twist (v, w) from R0 = I
+# float operations an observation costs an LM iteration (the normal
+# equations: pose transform 18, projection 9, residuals 3, the Jacobian 24,
+# chi2 and weights 12, then a residual row 6 to weight it, 42 into H and 12
+# into g; then the candidate's robust error 42) and a round's
+# reclassification, counted from the plain version's arithmetic
+POSE_FLOPS_ITER = {3: 66 + 3 * 60 + 42, 2: 66 + 2 * 60 + 42}
+POSE_FLOPS_ROUND = 36
+POSE_BYTES_OBS = 4 * 7 + 1 + 1  # xw, uvr, 1 / sigma^2 and the valid flag read; the inlier flag written
+
+
+def _rodrigues(w):
+    """Rotation of a nonzero axis-angle vector, in float64."""
+    th = float(np.linalg.norm(w))
+    W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    return np.eye(3) + np.sin(th) / th * W + (1 - np.cos(th)) / th ** 2 * W @ W
+
+
+def pose_case(name):
+    """numpy inputs of one pose solve: observations of known points from a
+    true pose, with noise, gross outliers, monocular rows (u_r < 0) and
+    invalid rows as the case asks; R0 = I, t0 = 0. Returns (camera (fx, fy,
+    cx, cy, bf), xw, uvr, inv_sigma2, valid, R0, t0, t_true)."""
+    rng = np.random.default_rng(POSE_CASES.index(name) + 11)
+    rgbd = name == "rgbd_1000"
+    n = {"stereo_2000": 2000, "rgbd_1000": 1000, "one": 1, "ragged_1337": 1337,
+         "all_invalid": 700, "all_valid": 600, "max_4096": 4096}[name]
+    if rgbd:  # the freiburg1 camera at 0.8-4 m
+        cam = (517.306408, 516.469215, 318.643040, 255.313989, 40.0)
+        xw = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.2, 1.2, n), rng.uniform(0.8, 4.0, n)], 1)
+    else:  # the KITTI camera at 4-25 m
+        cam = (718.856, 718.856, 607.1928, 185.2157, 386.1448)
+        xw = np.stack([rng.uniform(-6, 6, n), rng.uniform(-4, 4, n), rng.uniform(4, 25, n)], 1)
+    cam = tuple(float(np.float32(v)) for v in cam)
+    fx, fy, cx, cy, bf = cam
+    twist = np.array(POSE_TRUE)
+    R_true = _rodrigues(twist[3:])
+    t_true = twist[:3]
+    xc = xw @ R_true.T + t_true
+    u = fx * xc[:, 0] / xc[:, 2] + cx
+    v = fy * xc[:, 1] / xc[:, 2] + cy
+    uvr = np.stack([u, v, u - bf / xc[:, 2]], 1) + rng.normal(0, 0.5, (n, 3))
+    if name != "all_valid":
+        out = rng.random(n) < (0.1 if rgbd else 0.2)
+        uvr[out, :2] += rng.uniform(-40, 40, (int(out.sum()), 2))  # gross outliers
+    if not rgbd:
+        uvr[rng.random(n) < 0.3, 2] = -1.0  # monocular observations
+    inv_s2 = 1.0 / 1.2 ** (2 * rng.integers(0, 8, n))
+    valid = {"all_invalid": np.zeros(n, bool), "all_valid": np.ones(n, bool)}.get(
+        name, rng.random(n) < 0.95)
+    f = np.float32
+    return (cam, xw.astype(f), uvr.astype(f), inv_s2.astype(f), valid,
+            np.eye(3, dtype=f), np.zeros(3, f), t_true.astype(f))
+
+
+def pose_inputs(name, dev):
+    """pose_case's solve as the port's (camera, R0, t0, PoseObs) on `dev`."""
+    from orb_slam2_2021_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam2_2021_tpu_torch.optim.pose import PoseObs
+
+    cam, xw, uvr, s2, valid, R0, t0, _ = pose_case(name)
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return PinholeCamera.create(*cam), T(R0), T(t0), PoseObs(T(xw), T(uvr), T(s2), T(valid))
+
+
+def pose_bound(obs, rounds, iters):
+    """(bound in ms, "operations" or "bytes") of one solve: float32 operations
+    of its observations over the H100's float32 rate outside the tensor
+    cores, bytes over its memory rate."""
+    n = obs.xw.shape[0]
+    n_stereo = int((obs.uvr[:, 2] >= 0).sum())
+    flops = rounds * (iters * (n_stereo * POSE_FLOPS_ITER[3] + (n - n_stereo) * POSE_FLOPS_ITER[2])
+                      + n * POSE_FLOPS_ROUND)
+    t_ops = 1e3 * flops / H100_FP32_FLOPS_PER_S
+    t_bytes = 1e3 * (n * POSE_BYTES_OBS + 4 * 24 + 8) / H100_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _wall_ms(fn, iters):
+    """Host ms of one call, synchronised: what a caller that issues it pays."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def check_pose_kernel(dev):
+    """Phase 28: the pose kernel against the plain version on the card on
+    every POSE_CASES case (identical inlier flags and counts, R and t within
+    POSE_R_TOL / POSE_T_TOL, two launches bit for bit, one counted launch a
+    solve), then both timed
+    at the lane's shapes: N = 2,000 stereo (KITTI) and N = 1,000 RGB-D
+    (freiburg1), with the plain version's launches a solve. Returns
+    {case: row}."""
+    from orb_slam2_2021_tpu_torch.config import OptimConfig
+    from orb_slam2_2021_tpu_torch.optim import pose as P
+
+    cfg = OptimConfig()
+    rows, inputs = {}, {name: pose_inputs(name, dev) for name in POSE_CASES}
+    for name, (cam, R0, t0, obs) in inputs.items():
+        n0 = P.POSE_KERNEL.launches
+        R, t, inl, n_in = P.pose_optimize(cam, R0, t0, obs, cfg)
+        R2, t2, inl2, n2 = P.pose_optimize(cam, R0, t0, obs, cfg)
+        torch.cuda.synchronize()
+        assert P.POSE_KERNEL.launches == n0 + 2, name
+        assert all(torch.equal(a, b) for a, b in ((R, R2), (t, t2), (inl, inl2), (n_in, n2))), \
+            f"pose kernel repeats bit for bit ({name})"
+        Rp, tp, inlp, np_ = P.pose_optimize_plain(cam, R0, t0, obs, cfg)
+        assert torch.equal(inl, inlp) and int(n_in) == int(np_), f"inlier flags identical ({name})"
+        r_err = float((R - Rp).abs().max())
+        t_err = float((t - tp).abs().max())
+        assert r_err < POSE_R_TOL and t_err < POSE_T_TOL, (name, r_err, t_err)
+        rows[name] = {"n": obs.xw.shape[0], "n_inliers": int(n_in), "r_err": r_err, "t_err": t_err}
+    for name in ("stereo_2000", "rgbd_1000"):
+        cam, R0, t0, obs = inputs[name]
+        row = rows[name]
+        # the plain version's kernels by the profiler; the pose kernel's own
+        # launch (static runtime, loaded by ctypes) shows in a process's first
+        # profile only and reads 0 in later ones, so POSE_KERNEL counts it
+        _, row["plain_launches_per_solve"], _ = _kernels_in(
+            lambda: P.pose_optimize_plain(cam, R0, t0, obs, cfg))
+        bound, by = pose_bound(obs, cfg.pose_rounds, cfg.pose_iters)
+        row.update(
+            launches_per_solve=1,
+            ms=device_ms(lambda: P.pose_optimize(cam, R0, t0, obs, cfg), iters=50),
+            wall_ms=_wall_ms(lambda: P.pose_optimize(cam, R0, t0, obs, cfg), iters=50),
+            plain_ms=device_ms(lambda: P.pose_optimize_plain(cam, R0, t0, obs, cfg), iters=3, warm=1),
+            plain_wall_ms=_wall_ms(lambda: P.pose_optimize_plain(cam, R0, t0, obs, cfg), iters=3),
+            bound_ms=bound, bound_by=by)
+        row["share"] = row["bound_ms"] / row["ms"]
+    for name, row in rows.items():
+        log(f"phase 28 pose_lm {name}: {json.dumps(row)}")
+    return rows
+
+
 def _best2_by_thread():
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL
 
@@ -3361,10 +3510,11 @@ def run(work):
     from orb_slam2_2021_tpu_torch.ops.cuda_build import build_all
     from orb_slam2_2021_tpu_torch.ops.hamming import HAMMING_BEST2_KERNEL, HAMMING_KERNEL
     from orb_slam2_2021_tpu_torch.ops.vocab_kernels import KERNELS as VOCAB_KERNEL_OBJECTS
+    from orb_slam2_2021_tpu_torch.optim.pose import POSE_KERNEL
 
     t0 = time.perf_counter()
-    build_all([HAMMING_KERNEL, HAMMING_BEST2_KERNEL, *VOCAB_KERNEL_OBJECTS])
-    log(f"built {HAMMING_KERNEL.source} and {VOCAB_KERNEL_OBJECTS[0].source} in "
+    build_all([HAMMING_KERNEL, HAMMING_BEST2_KERNEL, *VOCAB_KERNEL_OBJECTS, POSE_KERNEL])
+    log(f"built {HAMMING_KERNEL.source}, {VOCAB_KERNEL_OBJECTS[0].source} and {POSE_KERNEL.source} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     max_err, times = check_hamming(dev)
@@ -3421,6 +3571,9 @@ def run(work):
     t27 = time.perf_counter()
     vocab = check_vocab_card(dev)
     log(f"phase 27 on the card: {time.perf_counter() - t27:.1f} s")
+    t28 = time.perf_counter()
+    pose = check_pose_kernel(dev)
+    log(f"phase 28: {time.perf_counter() - t28:.1f} s")
     # phase 22's two ranks run in processes of their own while this one
     # holds the CUDA drives of phases 4, 7, 10 and 14 against the CPU path,
     # which report no times, on half of the CPU threads
@@ -3501,6 +3654,14 @@ def run(work):
                         "max_abs_err": vocab["max_err"][name],
                         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                         "shape": head["shape"], "shapes": vocab["times"][name]})
+    head = pose["stereo_2000"]
+    kernels.append({"name": "pose_lm", "route": "cuda", "source": "orb_slam2_2021_tpu_torch/csrc/pose.cu",
+                    "replaces": "none (orb_slam2_2021_tpu/optim/pose.py is an XLA program)",
+                    "launches_per_solve": head["launches_per_solve"],
+                    "plain_launches_per_solve": head["plain_launches_per_solve"],
+                    "max_abs_err": max(max(r["r_err"], r["t_err"]) for r in pose.values()),
+                    **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                    "shape": [head["n"]], "shapes": pose})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,9 +9,10 @@ package's data folder, by path.
 
 The one Pallas kernel of the reference (the packed-descriptor Hamming
 matrix) is a hand-written CUDA kernel here (`csrc/hamming.cu`), and the
-vocabulary builder's k-medians runs on three more (`csrc/vocab.cu`), each
-source built with nvcc at first use; everything else is plain PyTorch. The
-entry points run on the card unless the caller passes device="cpu".
+vocabulary builder's k-medians runs on three more (`csrc/vocab.cu`) and the
+tracker's motion-only pose solve on one more (`csrc/pose.cu`), each source
+built with nvcc at first use; everything else is plain PyTorch. The entry
+points run on the card unless the caller passes device="cpu".
 """
 
 import torch

@@ -53,6 +53,9 @@ from ..io.metrics import write_ndjson
 from ..io.persistence import load_map, save_map
 from ..io.trajectory import save_kitti, save_tum
 from ..mapping.map_store import MapStore
+from ..ops.cuda_build import build_all
+from ..ops.hamming import HAMMING_BEST2_KERNEL
+from ..optim.pose import POSE_KERNEL
 from ..place.bundle import PlaceRecognition
 from .local_mapping import LocalMapping
 from .loop_closing import LoopClosing
@@ -80,6 +83,10 @@ class System:
         self.cfg = cfg
         self.sensor = sensor
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the lane's kernels, one nvcc a source started together, before
+            # the first frame (a no-op once built)
+            build_all([HAMMING_BEST2_KERNEL, POSE_KERNEL])
         self.map = MapStore(cfg)
         if place_rec is None:
             if vocab_path is not None:

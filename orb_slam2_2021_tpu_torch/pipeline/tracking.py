@@ -30,7 +30,7 @@ median depth.
 
 Spans (io/trace.py) under System's `track`: `track.select_local_kfs`,
 `track.snapshot`, `track.fused_step` (with `track.motion_search`,
-`track.pose_opt` per LM round and `track.local_search` in the device steps),
+`track.pose_opt` a pose solve and `track.local_search` in the device steps),
 `track.readback` (the host's waits for device results), `track.bind` (the
 bookkeeping after the fused or local-map readback), `track.kf_decision`,
 `track.kf_create` (keyed by the new keyframe's id), and one span for each

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from chip_smoke import hamming_inputs  # edge-case descriptors and masks
-from chip_smoke import (MAJORITY_SIZES, SEED_DRAW_CASES, counted_rows, majority_case,
-                        seed_draw_case, seed_draw_uniforms)
+from chip_smoke import (MAJORITY_SIZES, POSE_CASES, POSE_R_TOL, POSE_T_TOL, SEED_DRAW_CASES,
+                        counted_rows, majority_case, pose_inputs, seed_draw_case, seed_draw_uniforms)
 from orb_slam2_2021_tpu_torch.config import synthetic_config
 from orb_slam2_2021_tpu_torch.io.synthetic import SyntheticStereoWorld, forward_trajectory
 from orb_slam2_2021_tpu_torch.ops import hamming as tham
@@ -74,6 +74,75 @@ def test_lane_on_cuda_matches_cpu(cuda_device):
             assert np.abs(pg[0] - pc[0]).max() < 1e-3, "R: tolerance 1e-3"
     assert tham.HAMMING_BEST2_KERNEL.launches > 0, "the lane ran the fused Hamming kernel"
     assert tham.HAMMING_KERNEL.launches == 0, "and never the matrix kernel"
+
+
+@pytest.mark.parametrize("name", POSE_CASES)
+def test_pose_kernel_matches_plain_and_repeats(cuda_device, name):
+    """csrc/pose.cu against pose_optimize_plain on the card: identical inlier
+    flags and count, R within 1e-5 and t within 1e-4 m (the port-vs-JAX
+    test's tolerances: the sums run in another order), the same bits from
+    two launches, one counted launch a solve."""
+    from orb_slam2_2021_tpu_torch.config import OptimConfig
+    from orb_slam2_2021_tpu_torch.optim import pose as P
+
+    cfg = OptimConfig()
+    cam, R0, t0, obs = pose_inputs(name, cuda_device)
+    launches = P.POSE_KERNEL.launches
+    first = P.pose_optimize(cam, R0, t0, obs, cfg)
+    second = P.pose_optimize(cam, R0, t0, obs, cfg)
+    torch.cuda.synchronize()
+    assert P.POSE_KERNEL.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), "bit for bit"
+    R, t, inl, n_in = first
+    Rp, tp, inlp, n_p = P.pose_optimize_plain(cam, R0, t0, obs, cfg)
+    assert inl.dtype == torch.bool and n_in.dtype == torch.int64 and n_in.dim() == 0
+    assert torch.equal(inl, inlp) and int(n_in) == int(n_p) == int(inl.sum())
+    assert float((R - Rp).abs().max()) < POSE_R_TOL, "R: 1e-5"
+    assert float((t - tp).abs().max()) < POSE_T_TOL, "t: 1e-4 m"
+
+
+def test_pose_kernel_refuses_more_than_it_takes(cuda_device):
+    from orb_slam2_2021_tpu_torch.config import OptimConfig
+    from orb_slam2_2021_tpu_torch.optim import pose as P
+
+    cam, R0, t0, _ = pose_inputs("one", cuda_device)
+    n = P.MAX_OBS + 1
+    z = torch.zeros(n, 3, device=cuda_device)
+    obs = P.PoseObs(z, z.clone(), torch.ones(n, device=cuda_device),
+                    torch.ones(n, dtype=torch.bool, device=cuda_device))
+    launches = P.POSE_KERNEL.launches
+    with pytest.raises(ValueError):
+        P.pose_optimize(cam, R0, t0, obs, OptimConfig())
+    assert P.POSE_KERNEL.launches == launches
+
+
+def test_lane_pose_solves_are_one_launch_each(cuda_device, monkeypatch):
+    """Six 320x240 frames through the System on the card: every
+    `track.pose_opt` span (one a solve) holds one pose-kernel launch, and
+    the plain version never runs."""
+    from orb_slam2_2021_tpu_torch.io import trace
+    from orb_slam2_2021_tpu_torch.optim import pose as P
+    from orb_slam2_2021_tpu_torch.pipeline.system import System
+
+    def refuse(*args):
+        raise AssertionError("the plain pose solve ran on a CUDA input")
+
+    monkeypatch.setattr(P, "pose_optimize_plain", refuse)
+    cfg = synthetic_config(width=320, height=240)
+    world = SyntheticStereoWorld(cfg, seed=3)
+    sys_ = System(cfg, enable_mapping=False, device=cuda_device)
+    launches = P.POSE_KERNEL.launches
+    trace.stop()
+    trace.start()
+    try:
+        for i, (R, t) in enumerate(forward_trajectory(6, step=0.12)):
+            left, right = world.render(R, t)
+            sys_.track_stereo(left, right, timestamp=0.1 * i)
+    finally:
+        rec = trace.stop()
+    solves = len(rec.named("track.pose_opt"))
+    assert solves >= 3 * len(rec.named("track.fused_step")) > 0
+    assert P.POSE_KERNEL.launches - launches == solves
 
 
 def test_mapping_hamming_batched_matches_plain(cuda_device):

@@ -259,9 +259,9 @@ def test_each_frame_has_one_frame_span_over_build_and_track(drive):
     for name in ("track.motion_search", "track.pose_opt", "track.local_search", "track.readback",
                  "track.bind", "track.select_local_kfs", "track.snapshot", "track.kf_decision"):
         assert rec.named(name), name
-    pose_rounds = [s for s in rec.named("track.pose_opt")
+    pose_solves = [s for s in rec.named("track.pose_opt")
                    if any(p.id == s.parent for p in rec.named("track.fused_step"))]
-    assert len(pose_rounds) == 3 * CFG.optim.pose_rounds * len(fused), "an LM round a span"
+    assert len(pose_solves) == 3 * len(fused), "a pose solve a span: three a fused step"
 
 
 def test_metrics_take_their_times_from_the_spans(drive):
